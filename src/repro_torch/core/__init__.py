@@ -1,0 +1,41 @@
+"""CLIMBER core on PyTorch — the counterpart of ``repro.core``."""
+from repro_torch.core.paa import paa, znormalize
+from repro_torch.core.pivots import select_pivots
+from repro_torch.core.signatures import (compute_signatures, decay_weights,
+                                         pivot_distances, rank_signature,
+                                         set_onehot, set_signature,
+                                         weighted_onehot)
+from repro_torch.core.distances import (euclidean, overlap_distance,
+                                        squared_l2_pairwise, total_weight,
+                                        weight_distance)
+from repro_torch.core.centroids import CentroidSet, compute_centroids
+from repro_torch.core.assignment import assign_groups, assignment_distances
+from repro_torch.core.trie import TrieForest, build_forest
+from repro_torch.core.packing import ffd_pack
+from repro_torch.core.traversal import TrieDevice, descend, route_records
+from repro_torch.core.index import (ClimberIndex, PartitionStore, build_index,
+                                    build_store, index_from_arrays)
+from repro_torch.core.query import (QueryPlan, candidates_scanned, compact_plan,
+                                    default_slot_budget, get_planner, knn_query,
+                                    plan, plan_adaptive, plan_exhaustive,
+                                    plan_knn, plan_od_smallest, planner_names,
+                                    register_planner)
+from repro_torch.core.refine import (PAD_DIST, default_use_kernel,
+                                     dispatch_refine, merge_topk, refine,
+                                     resolve_use_kernel)
+
+__all__ = [
+    "paa", "znormalize", "select_pivots", "compute_signatures",
+    "rank_signature", "set_signature", "set_onehot", "decay_weights",
+    "weighted_onehot", "pivot_distances", "euclidean", "squared_l2_pairwise",
+    "overlap_distance", "weight_distance", "total_weight",
+    "compute_centroids", "CentroidSet", "assign_groups",
+    "assignment_distances", "build_forest", "TrieForest", "ffd_pack",
+    "TrieDevice", "descend", "route_records", "ClimberIndex",
+    "PartitionStore", "build_index", "build_store", "index_from_arrays",
+    "QueryPlan", "knn_query", "plan", "plan_knn", "plan_adaptive",
+    "plan_exhaustive", "plan_od_smallest", "register_planner", "get_planner",
+    "planner_names", "compact_plan", "default_slot_budget",
+    "candidates_scanned", "dispatch_refine", "refine", "merge_topk",
+    "PAD_DIST", "default_use_kernel", "resolve_use_kernel",
+]

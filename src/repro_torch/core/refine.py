@@ -1,0 +1,140 @@
+"""Localized record-level similarity — paper §VI (final refine stage).
+
+Given the partitions + trie-node targets the planner selected, rank every
+record of those targets by exact ED and keep the k best.  Backends, behind
+:func:`dispatch_refine`:
+
+  * the fused kernel (``kernels.refine_topk`` via
+    ``ops.fused_refine_topk_device_plan``): masked distance + k-best
+    straight off the store, nothing of shape ``[Q, slots, cap]``
+    materialised.  On a CPU tensor the same wrapper runs its plain version;
+  * the dense path: gathers the selected rows, masks the full distance
+    tensor, stable top-k — the parity oracle.
+
+``use_kernel=None`` resolves by the store's device (:func:`default_use_kernel`):
+the kernel on CUDA, the dense path on the CPU.  ``use_kernel=False`` is the
+only way a CUDA tensor reaches the dense path.  The sharded refine of the
+JAX package (``refine_sharded``) waits for the multi-GPU slice.
+
+Duplicate coverage (a node and its ancestor both selected) is removed by a
+sorted-slot segmented scan: plan entries are sorted by partition id, and a
+record is dropped when an earlier entry of the same partition included it.
+The scan (the JAX package's ``_dedupe_segments``) is
+``kernels.refine_topk.dedupe_segments``, shared by the dense path and the
+kernel's plain version; the CUDA kernel evaluates the same predicate.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.index import PartitionStore
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.refine_topk import PAD_D2, masked_distances, topk_flat
+
+# Sentinel distance of a pad answer (gid = -1): both refine paths emit
+# sqrt(PAD_D2) for slots with fewer than k candidates.
+PAD_DIST = float(np.sqrt(np.float32(3.4e38)))
+
+
+def default_use_kernel(device) -> bool:
+    """Backend default for the refine implementation: the fused kernel for
+    a store on the card, the dense path on the CPU."""
+    return torch.device(device).type == "cuda"
+
+
+def resolve_use_kernel(use_kernel: Optional[bool], device) -> bool:
+    """``None`` → the device default; explicit flags are honoured as-is."""
+    return default_use_kernel(device) if use_kernel is None else bool(use_kernel)
+
+
+def _sort_by_partition(sel_part, sel_lo, sel_hi):
+    """Stable-sort plan entries by partition id (pads first, ties by entry
+    order) so duplicate coverage is detectable by a segmented scan."""
+    order = torch.argsort(sel_part, dim=-1, stable=True)
+    take = lambda t: torch.gather(t, 1, order)
+    return take(sel_part), take(sel_lo), take(sel_hi)
+
+
+def _masked_distances(store: PartitionStore, queries, sel_part, sel_lo, sel_hi):
+    """Dense ``[Q, MP·cap]`` masked squared ED and gids (the oracle)."""
+    sel_part, sel_lo, sel_hi = _sort_by_partition(sel_part, sel_lo, sel_hi)
+    return masked_distances(store.data, store.norms, store.rec_dfs,
+                            store.rec_gid, queries, sel_part, sel_lo, sel_hi)
+
+
+def refine(store: PartitionStore, queries: torch.Tensor, sel_part: torch.Tensor,
+           sel_lo: torch.Tensor, sel_hi: torch.Tensor, k: int,
+           *, use_kernel: Optional[bool] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact-ED top-k within the selected (partition, node) targets.
+
+    Returns:
+      (dist, gid): ``[Q, k]`` ascending ED (not squared) and record ids
+      (−1 where fewer than k candidates existed; their distance is the
+      :data:`PAD_DIST` sentinel on both paths).
+    """
+    if resolve_use_kernel(use_kernel, store.data.device):
+        d2, gid = kernel_ops.fused_refine_topk_device_plan(
+            store.data, store.norms, store.rec_dfs, store.rec_gid,
+            queries, sel_part, sel_lo, sel_hi, k)
+    else:
+        d2, gid = topk_flat(*_masked_distances(store, queries, sel_part,
+                                               sel_lo, sel_hi), k)
+    return torch.sqrt(d2), torch.where(d2 >= PAD_D2, -1, gid)
+
+
+def merge_topk(dist_a, gid_a, dist_b, gid_b, k: int, *, dedupe: bool = False):
+    """Merge two per-query top-k lists into one ``[..., k]`` top-k.
+
+    Ties break toward input a, then slot order (the ``jax.lax.top_k``
+    lowest-index rule).  Pad entries (``gid = -1``) must carry
+    :data:`PAD_DIST`.  ``dedupe=True`` keeps only the best-ranked copy of
+    each gid (O(k²) pairwise compares).
+
+    Example — fusing two shards' answers::
+
+        >>> import torch
+        >>> d, g = merge_topk(torch.tensor([[1.0, 3.0]]), torch.tensor([[10, 11]]),
+        ...                   torch.tensor([[2.0, PAD_DIST]]), torch.tensor([[20, -1]]), k=3)
+        >>> g.tolist()
+        [[10, 20, 11]]
+    """
+    dist = torch.cat([dist_a, dist_b], dim=-1)
+    gid = torch.cat([gid_a, gid_b], dim=-1)
+    if dedupe:
+        # entry j dominates entry i when they carry the same real gid and j
+        # ranks strictly better: smaller distance, or equal and earlier
+        same = (gid[..., :, None] == gid[..., None, :]) & (gid[..., None, :] >= 0)
+        d_i, d_j = dist[..., :, None], dist[..., None, :]
+        n2 = dist.shape[-1]
+        ar = torch.arange(n2, device=dist.device)
+        earlier = ar[None, :] < ar[:, None]                     # j < i
+        dominated = torch.any(same & ((d_j < d_i) | ((d_j == d_i) & earlier)),
+                              dim=-1)
+        dist = torch.where(dominated, torch.full_like(dist, PAD_DIST), dist)
+        gid = torch.where(dominated, torch.full_like(gid, -1), gid)
+    if dist.shape[-1] < k:
+        pad = k - dist.shape[-1]
+        dist = torch.nn.functional.pad(dist, (0, pad), value=PAD_DIST)
+        gid = torch.nn.functional.pad(gid, (0, pad), value=-1)
+    order = torch.sort(dist, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(dist, -1, order), torch.gather(gid, -1, order)
+
+
+def dispatch_refine(store: PartitionStore, queries: torch.Tensor,
+                    sel_part: torch.Tensor, sel_lo: torch.Tensor,
+                    sel_hi: torch.Tensor, k: int, *, mesh=None,
+                    use_kernel: Optional[bool] = None):
+    """Single execution-dispatch layer for the query stack (single device).
+
+    ``mesh=`` is the JAX package's sharded path; the port has no multi-GPU
+    refine yet and raises on it.
+    """
+    if mesh is not None:
+        raise NotImplementedError("the port's refine is single-device; "
+                                  "multi-GPU refine is not ported yet")
+    return refine(store, queries, sel_part, sel_lo, sel_hi, k,
+                  use_kernel=use_kernel)

@@ -1,0 +1,36 @@
+// Shared helpers of the CLIMBER Hopper kernels (sm_90a).
+//
+// Every launcher has a plain C interface (bound from Python with ctypes),
+// launches on the stream it is given, allocates nothing, and returns
+// cudaGetLastError() so that a refused launch surfaces in the wrapper.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define CLIMBER_API extern "C" __attribute__((visibility("default")))
+
+namespace climber {
+
+__host__ __device__ inline long long ceil_div(long long a, long long b) {
+  return (a + b - 1) / b;
+}
+
+// Raise a kernel's dynamic shared-memory ceiling when it needs more than
+// the 48 KB a launch gets by default.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+}  // namespace climber

@@ -1,0 +1,173 @@
+"""Streaming fused refine — masked squared ED + k-best in one pass: CUDA
+kernel and plain version.
+
+Replaces ``repro/kernels/refine_topk.py::refine_topk``.  Contract (the
+reference's): the ``[Q, MP]`` plan is sorted by partition id along the entry
+axis, pads (``-1``) first.  For each query and plan entry the candidates are
+the ``cap`` slots of partition ``sel_part[q, s]`` at flat index
+``s * cap + c``; a record is kept iff its gid ≥ 0, its DFS tag lies in
+``[sel_lo, sel_hi)``, and no earlier entry of the same partition covers it.
+Output: the ``k`` best ``(d², gid)`` by ``(d², flat index)``, ``3.4e38``/``-1``
+where fewer than ``k`` candidates exist.
+
+The kernel is ``csrc/refine_topk.cu``: split-range partial k-best blocks that
+skip pad entries without touching the store, then a per-query merge by the
+same exact key (see the source for the design).  It is bound by HBM bytes,
+2n FLOPs per 4n + 12 bytes of each kept record.  The plain version gathers
+the ``[Q, MP, cap, n]`` candidate rows, so it only fits small plans.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _lib
+
+PAD_D2 = 3.4e38          # squared-distance sentinel of a pad answer
+MAX_SPLITS = 64
+
+
+def dedupe_segments(sel_part: torch.Tensor, incl: torch.Tensor) -> torch.Tensor:
+    """Drop records already included by an earlier same-partition entry.
+
+    ``sel_part`` ``[Q, MP]`` must be sorted so equal ids are contiguous;
+    ``incl`` is ``[Q, MP, cap]``.  Within a segment a slot is kept at the
+    first entry whose interval covers it: the exclusive running inclusion
+    count since the segment start is zero.
+    """
+    mp = sel_part.shape[-1]
+    pos = torch.arange(mp, device=sel_part.device)
+    seg_new = torch.cat([torch.ones_like(sel_part[:, :1], dtype=torch.bool),
+                         sel_part[:, 1:] != sel_part[:, :-1]], dim=-1)
+    seg_start = torch.cummax(torch.where(seg_new, pos[None, :], 0), dim=1).values
+    inc = incl.to(torch.int32)
+    ex_cum = torch.cumsum(inc, dim=1) - inc
+    start_cum = torch.gather(
+        ex_cum, 1, seg_start[:, :, None].expand(-1, -1, ex_cum.shape[-1]))
+    return incl & ((ex_cum - start_cum) == 0)
+
+
+def masked_distances(data, norms, rec_dfs, rec_gid, queries,
+                     sel_part, sel_lo, sel_hi):
+    """Dense ``[Q, MP·cap]`` masked squared ED (``PAD_D2`` where excluded)
+    and gids (``-1``) over a partition-sorted plan."""
+    q = queries.float()
+    pid = torch.clamp(sel_part, min=0).long()                  # clamp pads
+    rows = data[pid]                                           # [Q, MP, cap, n]
+    # an elementwise product and a last-axis sum, not a batched matmul, so
+    # each row's dot is summed in one order whatever the batch (a query's
+    # answer does not depend on the batch it rides in)
+    dots = (rows * q[:, None, None, :]).sum(dim=-1)
+    q2 = (q * q).sum(dim=-1)
+    d2 = torch.clamp(q2[:, None, None] - 2.0 * dots + norms[pid], min=0.0)
+    rdfs, rgid = rec_dfs[pid], rec_gid[pid]
+    in_node = (rdfs >= sel_lo[:, :, None]) & (rdfs < sel_hi[:, :, None])
+    incl = (rgid >= 0) & in_node & (sel_part >= 0)[:, :, None]
+    incl = dedupe_segments(sel_part, incl)
+    qn = queries.shape[0]
+    d2 = torch.where(incl, d2, torch.full_like(d2, PAD_D2)).reshape(qn, -1)
+    gid = torch.where(incl, rgid, torch.full_like(rgid, -1)).reshape(qn, -1)
+    return d2, gid
+
+
+def topk_flat(d2: torch.Tensor, gid: torch.Tensor, k: int):
+    """The k smallest of ``[Q, C]`` by (d², column), padded past C.
+
+    ``jax.lax.top_k`` breaks ties toward the lower index; a stable sort
+    does the same, ``torch.topk`` promises no order.
+    """
+    if d2.shape[-1] < k:
+        pad = k - d2.shape[-1]
+        d2 = torch.nn.functional.pad(d2, (0, pad), value=PAD_D2)
+        gid = torch.nn.functional.pad(gid, (0, pad), value=-1)
+    order = torch.sort(d2, dim=-1, stable=True).indices[:, :k]
+    return torch.gather(d2, 1, order), torch.gather(gid, 1, order)
+
+
+def refine_topk_plain(data, norms, rec_dfs, rec_gid, queries,
+                      sel_part, sel_lo, sel_hi, k: int):
+    """Plain PyTorch version of the fused refine (same contract)."""
+    d2, gid = masked_distances(data, norms, rec_dfs, rec_gid, queries,
+                               sel_part, sel_lo, sel_hi)
+    return topk_flat(d2, gid, k)
+
+
+def pick_splits(q: int, k: int, device: torch.device) -> int:
+    """Blocks per query: about four blocks per SM across the batch, within
+    the merge kernel's shared memory."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    lib = _lib.library()
+    s = max(1, min(MAX_SPLITS, math.ceil(4 * sms / max(q, 1))))
+    while s > 1 and lib.climber_refine_merge_smem(s, k) > _lib.SMEM_LIMIT:
+        s -= 1
+    return s
+
+
+def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
+                sel_hi, k: int, *, splits: Optional[int] = None):
+    """Fused refine through the kernel for CUDA tensors, the plain version
+    for CPU tensors.
+
+    Args:
+      data / norms / rec_dfs / rec_gid: the store, ``[P, cap, n]`` f32 /
+        ``[P, cap]`` f32, i32, i32.
+      queries: ``[Q, n]`` f32.
+      sel_part / sel_lo / sel_hi: ``[Q, MP]`` int32, sorted by partition.
+      k: answers per query.
+      splits: blocks per query (None: :func:`pick_splits`); any value
+        gives the same answer.
+
+    Returns:
+      (d2, gid): ``[Q, k]`` ascending squared ED (``PAD_D2`` past the
+      candidate pool) and record ids (``-1`` there).
+    """
+    tensors = (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi)
+    if not _lib.on_card(*tensors):
+        return refine_topk_plain(*tensors, k)
+    qn, n = queries.shape
+    mp = sel_part.shape[1]
+    p, cap = norms.shape
+    dev = queries.device
+    if qn == 0 or mp == 0:
+        return (torch.full((qn, k), PAD_D2, dtype=torch.float32, device=dev),
+                torch.full((qn, k), -1, dtype=torch.int32, device=dev))
+    _lib.require(data, "refine data", torch.float32, 3)
+    _lib.require(norms, "refine norms", torch.float32, 2)
+    _lib.require(rec_dfs, "refine rec_dfs", torch.int32, 2)
+    _lib.require(rec_gid, "refine rec_gid", torch.int32, 2)
+    _lib.require(queries, "refine queries", torch.float32, 2)
+    for name, t in (("sel_part", sel_part), ("sel_lo", sel_lo), ("sel_hi", sel_hi)):
+        _lib.require(t, f"refine {name}", torch.int32, 2)
+        if t.shape != (qn, mp):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(qn, mp)}")
+    if data.shape != (p, cap, n) or rec_dfs.shape != (p, cap) \
+            or rec_gid.shape != (p, cap):
+        raise ValueError("store columns disagree on [P, cap, n]")
+    if mp * cap >= 2**31 or k < 1:
+        raise ValueError(f"refine kernel needs MP*cap < 2^31 and k >= 1 "
+                         f"(MP={mp}, cap={cap}, k={k})")
+    lib = _lib.library()
+    if lib.climber_refine_partial_smem(mp, n, k) > _lib.SMEM_LIMIT:
+        raise ValueError(f"refine kernel: MP={mp}, n={n}, k={k} exceed the "
+                         f"block's shared memory")
+    s = splits or pick_splits(qn, k, dev)
+    if lib.climber_refine_merge_smem(s, k) > _lib.SMEM_LIMIT:
+        raise ValueError(f"refine kernel: {s} splits x k={k} exceed the merge "
+                         f"block's shared memory")
+    partial = torch.empty((qn, s, k), dtype=torch.int64, device=dev)
+    d2 = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    gid = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _lib.check(lib.climber_refine_topk(
+            data.data_ptr(), norms.data_ptr(), rec_dfs.data_ptr(),
+            rec_gid.data_ptr(), queries.data_ptr(), sel_part.data_ptr(),
+            sel_lo.data_ptr(), sel_hi.data_ptr(), partial.data_ptr(),
+            d2.data_ptr(), gid.data_ptr(), qn, mp, cap, n, k, s,
+            _lib.stream(dev)), "refine_topk")
+    refine_topk.launches += 1
+    return d2, gid
+
+
+refine_topk.launches = 0

@@ -1,0 +1,248 @@
+"""Kernel parity: each kernel's plain PyTorch version against the JAX
+package's Pallas kernel (``interpret=True``) and its ``kernels/ref.py``
+oracle, plus the CUDA kernels against their plain versions on a card.
+
+The JAX side is imported inside a fixture, so on a machine without JAX the
+CUDA tests still collect.  Tests marked ``cuda`` skip themselves where no
+card is present; run them on one with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _lib, ops, ref  # noqa: E402
+from repro_torch.kernels.paa_kernel import paa_plain  # noqa: E402
+from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain  # noqa: E402
+from repro_torch.kernels.refine_topk import PAD_D2, refine_topk, refine_topk_plain  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Keep the port's small CPU tests to one thread: the suite runs beside
+    timing-sensitive socket tests in other worker processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jk():
+    """The JAX package's kernels and oracles (CPU, interpret mode)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.paa_kernel import paa as jpaa
+    from repro.kernels.pivot_rank import pivot_rank as jpivot_rank
+    from repro.kernels.refine_topk import refine_topk as jrefine
+    return jnp, jref, jpaa, jpivot_rank, jrefine
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def make_store(seed, p=6, cap=37, n=16, ndfs=10):
+    """A random partition store: partition i holds its first count[i] slots."""
+    rng = np.random.default_rng(seed)
+    count = rng.integers(cap // 2, cap + 1, size=p)
+    data = rng.standard_normal((p, cap, n)).astype(np.float32)
+    live = np.arange(cap)[None, :] < count[:, None]
+    data[~live] = 0.0
+    norms = np.sum(data.astype(np.float64) ** 2, -1).astype(np.float32)
+    dfs = np.where(live, rng.integers(0, ndfs, size=(p, cap)), -1).astype(np.int32)
+    gid = np.full((p, cap), -1, np.int32)
+    gid[live] = rng.permutation(int(live.sum())).astype(np.int32)
+    return data, norms, dfs, gid
+
+
+def make_plan(seed, q, mp, p, ndfs=10, pad_frac=0.3, same_part=False):
+    """A plan sorted by partition (pads first), with nested intervals on
+    repeated partitions so the dedupe predicate has work."""
+    rng = np.random.default_rng(seed)
+    part = rng.integers(0, p, size=(q, mp))
+    if same_part:
+        part[:] = rng.integers(0, p)
+    part = np.where(rng.random((q, mp)) < pad_frac, -1, part)
+    lo = rng.integers(0, ndfs // 2, size=(q, mp))
+    hi = lo + rng.integers(1, ndfs, size=(q, mp))
+    order = np.argsort(part, axis=-1, kind="stable")
+    take = lambda a: np.take_along_axis(a, order, -1).astype(np.int32)
+    return take(part), take(lo), take(hi)
+
+
+CASES = {
+    # name: (store seed, plan kwargs, k)
+    "mixed": (0, dict(q=4, mp=6), 20),
+    "mostly_pads": (1, dict(q=3, mp=8, pad_frac=0.8), 15),
+    "dedupe_one_partition": (2, dict(q=3, mp=5, same_part=True, pad_frac=0.0), 25),
+    "pool_smaller_than_k": (3, dict(q=2, mp=2), 80),
+}
+
+
+def case_inputs(name):
+    seed, kw, k = CASES[name]
+    store = make_store(seed)
+    sp, lo, hi = make_plan(seed + 10, p=store[0].shape[0], **kw)
+    if name == "mostly_pads":
+        sp[0] = -1                       # one all-masked plan row
+    q = np.random.default_rng(seed + 20).standard_normal(
+        (sp.shape[0], store[0].shape[2])).astype(np.float32)
+    return store, q, (sp, lo, hi), k
+
+
+def assert_topk_match(d_a, g_a, d_b, g_b, q, norms):
+    """gids equal; squared distances within 1e-5·(‖q‖² + max ‖x‖²).
+
+    The Pallas kernel leaves an arbitrary gid beside a +inf pad distance
+    (``core/refine.py`` maps those to -1), so pads compare by distance."""
+    g_b = np.where(d_b >= PAD_D2, -1, g_b)
+    np.testing.assert_array_equal(g_a, g_b)
+    pad = d_b >= PAD_D2
+    np.testing.assert_array_equal(d_a >= PAD_D2, pad)
+    tol = 1e-5 * ((q * q).sum(-1, keepdims=True) + norms.max())
+    assert np.all(np.where(pad, 0.0, np.abs(d_a - d_b)) <= tol)
+
+
+# ---------------------------------------------------------------------------
+# plain versions ≡ the JAX package (CPU)
+# ---------------------------------------------------------------------------
+def test_paa_plain_matches_pallas_and_ref(jk):
+    jnp, jref, jpaa, _, _ = jk
+    x = np.random.default_rng(0).standard_normal((37, 64)).astype(np.float32)
+    got = paa_plain(torch.as_tensor(x), 8).numpy()
+    np.testing.assert_allclose(got, np.asarray(jpaa(jnp.asarray(x), 8,
+                                                    interpret=True)), atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(jref.paa_ref(jnp.asarray(x), 8)),
+                               atol=1e-6)
+    np.testing.assert_array_equal(ref.paa_ref(torch.as_tensor(x), 8).numpy(), got)
+
+
+def test_pivot_rank_plain_matches_pallas_and_ref(jk):
+    jnp, jref, _, jpivot_rank, _ = jk
+    rng = np.random.default_rng(1)
+    z = rng.standard_normal((300, 16)).astype(np.float32)
+    piv = rng.standard_normal((40, 16)).astype(np.float32)
+    got = pivot_rank_plain(torch.as_tensor(z), torch.as_tensor(piv), 10).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jpivot_rank(jnp.asarray(z), jnp.asarray(piv), 10,
+                                    interpret=True)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.pivot_rank_ref(jnp.asarray(z), jnp.asarray(piv), 10)))
+    assert torch.equal(ref.pivot_rank_ref(torch.as_tensor(z), torch.as_tensor(piv), 10),
+                       torch.as_tensor(got))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_refine_plain_matches_pallas_kernel(jk, name):
+    jnp, jref, _, _, jrefine = jk
+    store, q, plan, k = case_inputs(name)
+    d_t, g_t = refine_topk_plain(*map(torch.as_tensor, store), torch.as_tensor(q),
+                                 *map(torch.as_tensor, plan), k)
+    # block 16 leaves a ragged tail: cap = 37 is no multiple of it
+    d_j, g_j = jrefine(*map(jnp.asarray, store), jnp.asarray(q),
+                       *map(jnp.asarray, plan), k, block_c=16, interpret=True)
+    assert_topk_match(d_t.numpy(), g_t.numpy(), np.asarray(d_j), np.asarray(g_j),
+                      q, store[1])
+    d_r, g_r = jref.refine_topk_ref(*map(jnp.asarray, store), jnp.asarray(q),
+                                    *map(jnp.asarray, plan), k)
+    assert_topk_match(d_t.numpy(), g_t.numpy(), np.asarray(d_r), np.asarray(g_r),
+                      q, store[1])
+    if name == "mostly_pads":
+        assert (g_t[0] == -1).all() and (d_t[0] >= PAD_D2).all()
+    if name == "pool_smaller_than_k":
+        assert (g_t[:, -1] == -1).all()
+
+
+def test_device_plan_wrapper_sorts_the_plan():
+    store, q, (sp, lo, hi), k = case_inputs("mixed")
+    perm = np.random.default_rng(5).permutation(sp.shape[1])
+    args = [torch.as_tensor(a) for a in store]
+    sorted_out = ops.fused_refine_topk(*args, torch.as_tensor(q), *map(
+        torch.as_tensor, (sp, lo, hi)), k)
+    shuffled_out = ops.fused_refine_topk_device_plan(
+        *args, torch.as_tensor(q), *(torch.as_tensor(a[:, perm]) for a in (sp, lo, hi)), k)
+    # same entries, other order: the same record set and distances
+    assert torch.equal(sorted_out[0], shuffled_out[0])
+    assert set(sorted_out[1].flatten().tolist()) == set(shuffled_out[1].flatten().tolist())
+
+
+# ---------------------------------------------------------------------------
+# dispatch rules (no card needed)
+# ---------------------------------------------------------------------------
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    before = ops.launch_counts()
+    store, q, plan, k = case_inputs("mixed")
+    d, g = refine_topk(*map(torch.as_tensor, store), torch.as_tensor(q),
+                       *map(torch.as_tensor, plan), k)
+    d_p, g_p = refine_topk_plain(*map(torch.as_tensor, store), torch.as_tensor(q),
+                                 *map(torch.as_tensor, plan), k)
+    assert torch.equal(d, d_p) and torch.equal(g, g_p)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("wrapper", ["paa", "pivot_rank"])
+def test_other_devices_raise(wrapper):
+    meta = torch.empty((4, 16), device="meta")
+    with pytest.raises(ValueError):
+        if wrapper == "paa":
+            ops.paa(meta, 4)
+        else:
+            ops.pivot_rank(meta, torch.empty((8, 16)), 3)
+
+
+def test_kernel_library_sources_and_hash():
+    names = sorted(p.name for p in _lib.sources())
+    assert names == ["paa.cu", "pivot_rank.cu", "refine_topk.cu"]
+    h = _lib.source_hash()
+    assert len(h) == 16 and h == _lib.source_hash()
+    assert all(f in " ".join(_lib.NVCC_FLAGS) for f in ("sm_90a", "-O3"))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels ≡ plain versions (run on a card)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_paa_matches_plain(cuda):
+    x = torch.randn((1000, 256), generator=torch.Generator().manual_seed(0)).to(cuda)
+    n0 = ops.launch_counts()["paa"]
+    got = ops.paa(x, 16)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paa"] == n0 + 1
+    assert float((got - paa_plain(x, 16)).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,m", [(16, 10), (8, 5)])
+def test_cuda_pivot_rank_matches_plain(cuda, w, m):
+    g = torch.Generator().manual_seed(1)
+    z = torch.randn((5000, w), generator=g).to(cuda)
+    piv = torch.randn((200, w), generator=g).to(cuda)
+    got = ops.pivot_rank(z, piv, m)
+    want = pivot_rank_plain(z, piv, m)
+    bad = (got != want).any(1)
+    if bad.any():      # only near-ties may differ
+        d = pivot_distances_plain(z[bad], piv).double()
+        gap = (torch.gather(d, 1, got[bad].long()) - torch.gather(d, 1, want[bad].long()))
+        assert float(gap.abs().max()) <= 1e-4
+    assert float(bad.float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_refine_matches_plain(cuda, name):
+    store, q, plan, k = case_inputs(name)
+    args = [torch.as_tensor(a).to(cuda) for a in (*store, q, *plan)]
+    d_k, g_k = refine_topk(*args, k)
+    d_1, g_1 = refine_topk(*args, k, splits=1)
+    torch.cuda.synchronize()
+    # the answer does not depend on how the candidates were split
+    assert torch.equal(d_k, d_1) and torch.equal(g_k, g_1)
+    d_p, g_p = refine_topk_plain(*args, k)
+    assert_topk_match(d_k.cpu().numpy(), g_k.cpu().numpy(), d_p.cpu().numpy(),
+                      g_p.cpu().numpy(), q, store[1])
