@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's main path once on one NVIDIA card, at the paper's
+Drives the port's two paths once on one NVIDIA card, at the paper's
 configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10, c=3000,
-K=500): generates a z-normalised random-walk dataset on the card from
-``--seed``, builds the CLIMBER index on the card, and serves queries drawn
-from the dataset through ``ClimberEngine`` (adaptive at batch 64, k=500;
-``knn`` and ``od_smallest`` one batch each).  Every kernel's launch count is
-zeroed just before that run and read just after it.
+K=500), with every kernel's launch count zeroed just before each path and
+read just after it:
 
-Then, off the main path, it holds each CUDA kernel against its plain
-PyTorch version on the same inputs at the main path's shapes, times both
-with CUDA events (and, for PAA, the one PyTorch call that computes it),
-traces one more adaptive tick with ``torch.profiler`` (device busy time and
-idle share), checks the engine against per-query ``knn_query``, prints
-recall@500 of the adaptive plan against an exact scan, and requires the
-exhaustive plan to reproduce that scan.  Any failed phase raises and the
-script exits non-zero.  Output, in order: phase lines, one
-``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
-limit, and the last line ``{"ok": true, "device": {...}}``.  ``--report
-PATH`` also writes a longer JSON report there.
+1. **serve**: generates a z-normalised random-walk dataset on the card from
+   ``--seed``, builds the CLIMBER index on the card, and serves queries
+   drawn from the dataset through ``ClimberEngine`` (adaptive at batch 64,
+   k=500; ``knn`` and ``od_smallest`` one batch each).
+2. **evaluation** (Fig. 7): for the main dataset and for ``sift``, ``dna``,
+   ``eeg`` and ``seismic`` at ``--other-num`` series each, the exact ground
+   truth of 64 queries by Dss (``GroundTruthCache`` → ``exact_knn`` → the
+   ``pairwise_l2`` kernel), then CLIMBER (``adaptive``, ``knn``,
+   ``recall_target`` at spend 2), DPiSAX and TARDIS (cardinality 8,
+   capacity c), each scored by tie-aware recall@K and MAP; DPiSAX also
+   answers through the dense refine (the ``qdots`` kernel), held against
+   its fused answer.  Every method runs over the whole dataset.  Last, a
+   seismic tenant corpus (4 shards, affinity 0.6) with perturbed queries,
+   2K true neighbours and the hard/easy split.
+
+Then, off both paths, it holds each CUDA kernel against its plain PyTorch
+version on the same inputs at the paths' shapes, times both with CUDA
+events (and the one PyTorch call that computes the same function, where
+there is one), traces one more adaptive tick with ``torch.profiler``
+(device busy time and idle share), checks the engine against per-query
+``knn_query``, and requires the exhaustive plan to reproduce the Dss answer
+up to k-th-distance ties.  Any failed check raises and the script exits
+non-zero.  Output, in order: phase lines, one ``{"kernels": [...]}`` JSON
+line, the card's ``nvidia-smi`` name and power limit, and the last line
+``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a longer
+JSON report there.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--num 4194304] [--queries 256]
-[--report PATH]``
+[--other-num 1048576] [--tenant-shard 262144] [--report PATH]``
 from the repository root (it puts ``src/`` on ``sys.path`` itself).  It
 needs a CUDA card and ``nvcc``; without a card it exits non-zero before
 printing any result.
@@ -31,8 +43,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,12 +68,125 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+SERVE_KERNELS = ("paa", "pivot_rank", "refine_topk")
+EVAL_QUERIES = 64
+SCAN_CHUNK = 1 << 20          # Dss rows per pairwise_l2 launch
+
+
+def sync_wall(fn):
+    """(result, seconds) of ``fn()`` on the host clock, card synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def assert_same_topk(label, d2_a, g_a, d2_b, g_b, tol):
+    """The refine_topk rule: ``|Δd²| ≤ tol`` per query, and answer sets that
+    differ only at the k-th distance (a near-tie under another summation
+    order).  Returns (max |Δd²|, queries whose gids differ)."""
+    import torch
+    derr = (d2_a - d2_b).abs()
+    if bool((derr > tol).any()):
+        raise SystemExit(f"{label}: |Δd²| {float(derr.max())} exceeds "
+                         f"1e-5·(‖q‖²+‖x‖²)")
+    kth = d2_b[:, -1:]
+    differ = (g_a != g_b).any(1)
+    for i in differ.nonzero()[:, 0].tolist():
+        extra = torch.tensor(sorted(set(g_a[i].tolist()) - set(g_b[i].tolist())),
+                             device=g_a.device, dtype=g_a.dtype)
+        if extra.numel():
+            d_extra = d2_a[i][torch.isin(g_a[i], extra)]
+            if bool(((d_extra - kth[i]).abs() > tol[i]).any()):
+                raise SystemExit(f"{label}: query {i} answer set differs "
+                                 f"away from the k-th distance")
+    return float(derr.max()), int(differ.sum())
+
+
+def evaluate_dataset(name, data, queries, index, gt_cache, meta, cfg, gen):
+    """Fig. 7 on one dataset: Dss truth, then CLIMBER, DPiSAX, TARDIS.
+
+    Returns (rows, truth): one row per method, and the Dss answer over the
+    whole dataset ``(dist, idx)`` as numpy.
+    """
+    import numpy as np
+    import torch
+    from repro_torch.baselines import (build_dpisax, build_tardis, dpisax_knn,
+                                       tardis_knn)
+    from repro_torch.core.query import knn_query
+    from repro_torch.eval import mean_average_precision, recall_at_k
+
+    k, nq, num = cfg.k, queries.shape[0], data.shape[0]
+    m = dict(meta, rows=num)
+    (d_gt, i_gt), secs = sync_wall(lambda: gt_cache.exact(
+        m, queries, data, k, chunk=SCAN_CHUNK))
+    say(f"  dss[{name}]: exact {k}-NN of {nq} queries over {num} series "
+        f"in {secs:.3f} s ({-(-num // SCAN_CHUNK)} pairwise_l2 launches)")
+    rows_out = []
+    q2 = (queries.double() ** 2).sum(-1, keepdim=True)
+
+    def score(method, dist, gid, secs, **extra):
+        dist, gid = dist.cpu().numpy(), gid.cpu().numpy()
+        row = {"dataset": name, "method": method, "rows": num,
+               "recall": recall_at_k(gid, i_gt, k, approx_dist=dist,
+                                     exact_dist=d_gt),
+               "map": mean_average_precision(gid, i_gt, k),
+               "ms_per_query": secs / nq * 1e3, **extra}
+        rows_out.append(row)
+        say(f"fig7[{name}] {method}: " + json.dumps(
+            {a: (round(b, 4) if isinstance(b, float) else b) for a, b in row.items()
+             if a not in ("dataset", "method")}))
+
+    for variant in ("adaptive", "knn", "recall_target"):
+        knn_query(index, queries[:8], k, variant=variant)          # warm-up
+        (d, g, qp), secs = sync_wall(lambda: knn_query(index, queries, k,
+                                                       variant=variant))
+        score(f"climber-{variant}", d, g, secs,
+              mean_partitions_touched=float(qp.partitions_touched().float().mean()))
+
+    w = cfg.paa_segments
+    dp, build_s = sync_wall(lambda: build_dpisax(
+        data, segments=w, cardinality=8, capacity=cfg.capacity, device=data.device))
+    dpisax_knn(dp, queries[:8], k)                                   # warm-up
+    (d, g), secs = sync_wall(lambda: dpisax_knn(dp, queries, k))
+    # the same queries through the dense refine (the qdots kernel)
+    (d_dense, g_dense), secs_dense = sync_wall(
+        lambda: dpisax_knn(dp, queries, k, use_kernel=False))
+    tol = 1e-5 * (q2 + float(dp.store.norms.max()))
+    err, differ = assert_same_topk(f"dpisax[{name}] dense vs fused",
+                                   d_dense.double() ** 2, g_dense,
+                                   d.double() ** 2, g, tol)
+    score("dpisax", d, g, secs, build_s=build_s,
+          partitions=dp.num_partitions, cap=dp.store.capacity,
+          store_gb=dp.store.data.numel() * 4 / 1e9,
+          dense_ms_per_query=secs_dense / nq * 1e3,
+          dense_vs_fused_max_abs_err=err, dense_vs_fused_gid_queries=differ)
+    del dp, d_dense, g_dense
+    td, build_s = sync_wall(lambda: build_tardis(
+        data, segments=w, cardinality=8, capacity=cfg.capacity,
+        sample_frac=cfg.sample_frac, generator=gen, device=data.device))
+    tardis_knn(td, queries[:8], k)                                   # warm-up
+    (d, g), secs = sync_wall(lambda: tardis_knn(td, queries, k))
+    score("tardis", d, g, secs, build_s=build_s,
+          partitions=td.forest.num_partitions, cap=td.store.capacity,
+          store_gb=td.store.data.numel() * 4 / 1e9)
+    del td
+    torch.cuda.empty_cache()
+    return rows_out, (d_gt, i_gt)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--num", type=int, default=4_194_304,
                     help="series in the dataset (the paper's scale, cut to one card)")
     ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--other-num", type=int, default=1_048_576,
+                    help="series in each of the sift/dna/eeg/seismic datasets")
+    ap.add_argument("--tenant-shard", type=int, default=262_144,
+                    help="series in each of the tenant corpus's 4 shards")
     ap.add_argument("--report", default=None,
                     help="also write the full JSON report to this path")
     args = ap.parse_args(argv)
@@ -75,10 +202,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     import numpy as np
-    from repro_torch.core.query import knn_query, plan as plan_queries
+    from repro_torch.core.query import (knn_query, plan as plan_queries,
+                                        register_recall_target)
     from repro_torch.core.index import build_index
+    from repro_torch.core.refine import refine
     from repro_torch.data import make_dataset, make_queries
+    from repro_torch.eval import (GroundTruthCache, hardness_split,
+                                  mean_average_precision, perturbed_queries,
+                                  recall_at_k, tenant_corpus)
     from repro_torch.kernels import _lib, ops
+    from repro_torch.kernels.l2 import pairwise_l2_plain, qdots_plain
     from repro_torch.kernels.paa_kernel import paa_plain
     from repro_torch.kernels.pivot_rank import pivot_rank_plain
     from repro_torch.kernels.refine_topk import PAD_D2, masked_distances, refine_topk, topk_flat
@@ -153,12 +286,12 @@ def main(argv=None) -> int:
             {k: (round(v, 3) if isinstance(v, float) else v) for k, v in row.items()}))
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    say(f"main-path launches: {launches}")
+    say(f"serve-path launches: {launches}")
     report["serve"] = serve
-    report["launches"] = launches
-    missing = [k for k, v in launches.items() if v <= 0]
+    report["launches_serve"] = launches
+    missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"kernels not launched on the main path: {missing}")
+        raise SystemExit(f"kernels not launched on the serve path: {missing}")
 
     # ---- where one serving tick's time goes (a separate, traced tick) -----
     from torch.profiler import ProfilerActivity, profile
@@ -206,40 +339,107 @@ def main(argv=None) -> int:
             raise SystemExit(f"engine answer {i} differs from knn_query")
     say("engine == per-query knn_query on 8 queries (dist and gid bit-equal)")
 
-    # recall@K of the first 64 queries against an exact scan (sanity figure)
-    q64 = queries[:64]
-    best_d = torch.full((64, cfg.k), float("inf"), device=dev)
-    best_i = torch.full((64, cfg.k), -1, dtype=torch.int64, device=dev)
-    q2 = (q64 * q64).sum(-1, keepdim=True)
-    for lo in range(0, args.num, 1 << 20):
-        x = data[lo:lo + (1 << 20)]
-        d = q2 - 2.0 * (q64 @ x.T) + (x * x).sum(-1)[None, :]
-        cat_d = torch.cat([best_d, d], 1)
-        cat_i = torch.cat([best_i, torch.arange(lo, lo + x.shape[0], device=dev)
-                           .expand(64, -1)], 1)
-        best_d, pos = torch.topk(cat_d, cfg.k, dim=1, largest=False)
-        best_i = torch.gather(cat_i, 1, pos)
-    exact = best_i.cpu().numpy()
-    recall = float(np.mean([len(set(gid[i]) & set(exact[i])) / cfg.k
-                            for i in range(64)]))
-    say(f"recall@{cfg.k} (adaptive, first 64 queries vs exact scan): {recall:.4f}")
-    report["recall_at_k_adaptive"] = recall
-    # the exhaustive plan through the same kernel must give the exact answer,
+    # ---- evaluation path (Fig. 7), launch counts zeroed ------------------
+    register_recall_target(2.0)          # the "recall_target" variant, spend 2
+    (ROOT / "build").mkdir(exist_ok=True)
+    gt_dir = Path(tempfile.mkdtemp(prefix="smoke_gt_", dir=ROOT / "build"))
+    q64 = queries[:EVAL_QUERIES].contiguous()
+    fig7 = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_eval = time.perf_counter()
+    try:
+        gt_cache = GroundTruthCache(gt_dir)
+        rows, (gt_d, gt_i) = evaluate_dataset(
+            "randomwalk", data, q64, index, gt_cache,
+            {"name": "randomwalk", "seed": args.seed, "series_len": cfg.series_len},
+            cfg, gen)
+        fig7 += rows
+        for j, name in enumerate(("sift", "dna", "eeg", "seismic")):
+            g_o = torch.Generator(device=dev).manual_seed(args.seed + 1 + j)
+            t = time.perf_counter()
+            x_o = make_dataset(name, args.other_num, cfg.series_len, generator=g_o)
+            q_o = make_queries(x_o, EVAL_QUERIES, generator=g_o).contiguous()
+            idx_o = build_index(x_o, cfg, device=dev, generator=g_o)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            say(f"dataset[{name}]: N={args.other_num} (cut from the paper's "
+                f"10^8-10^9 to one card) generated and CLIMBER-indexed in {secs:.2f} s: "
+                f"P={idx_o.store.num_partitions} cap={idx_o.store.capacity} "
+                f"store_gb={idx_o.store.data.numel() * 4 / 1e9:.3f} "
+                f"steps_s={ {a: round(b, 3) for a, b in idx_o.build_seconds.items()} }")
+            rows, _ = evaluate_dataset(
+                name, x_o, q_o, idx_o, gt_cache,
+                {"name": name, "seed": args.seed + 1 + j, "series_len": cfg.series_len},
+                cfg, g_o)
+            fig7 += rows
+            del x_o, q_o, idx_o
+            torch.cuda.empty_cache()
+
+        # a tenant corpus: perturbed queries, 2K true neighbours, hard/easy
+        shards = 4
+        t = time.perf_counter()
+        corpus = tenant_corpus("seismic", num_shards=shards,
+                               shard_size=args.tenant_shard,
+                               series_len=cfg.series_len, seed=args.seed,
+                               affinity=0.6, device=dev)
+        tq = perturbed_queries(corpus, EVAL_QUERIES, noise=0.1, seed=args.seed)
+        union = corpus.union
+        t_meta = dict(corpus.meta(), queries={"num": EVAL_QUERIES, "noise": 0.1,
+                                              "seed": args.seed})
+        t_d, t_i = gt_cache.exact(t_meta, tq, union, 2 * cfg.k, chunk=SCAN_CHUNK)
+        hard, easy = hardness_split(t_d, cfg.k)
+        g_t = torch.Generator(device=dev).manual_seed(args.seed + 9)
+        t_index = build_index(union, cfg, device=dev, generator=g_t)
+        d_t, gid_t, _ = knn_query(t_index, tq, cfg.k, variant="adaptive")
+        d_t, gid_t = d_t.cpu().numpy(), gid_t.cpu().numpy()
+        tenant = {"shards": shards, "shard_size": args.tenant_shard,
+                  "affinity": 0.6, "noise": 0.1, "seconds": time.perf_counter() - t}
+        for half, sel in (("hard", hard), ("easy", easy), ("all", np.arange(EVAL_QUERIES))):
+            tenant[f"recall_{half}"] = recall_at_k(
+                gid_t[sel], t_i[sel, :cfg.k], cfg.k, approx_dist=d_t[sel],
+                exact_dist=t_d[sel, :cfg.k])
+            tenant[f"map_{half}"] = mean_average_precision(gid_t[sel], t_i[sel, :cfg.k], cfg.k)
+        tenant["contrast_median"] = float(np.median(t_d[:, 2 * cfg.k - 1]
+                                                    / np.maximum(t_d[:, cfg.k - 1], 1e-12)))
+        say(f"tenant[seismic x{shards}, {args.tenant_shard} each, affinity 0.6, "
+            f"noise 0.1]: " + json.dumps({a: (round(b, 4) if isinstance(b, float) else b)
+                                          for a, b in tenant.items()}))
+        del corpus, union, t_index
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(gt_dir, ignore_errors=True)
+    eval_launches = ops.launch_counts()
+    eval_s = time.perf_counter() - t_eval
+    say(f"eval-path launches: {eval_launches} ({eval_s:.1f} s)")
+    report["fig7"] = fig7
+    report["tenant"] = tenant
+    report["launches_eval"] = eval_launches
+    report["eval_seconds"] = eval_s
+    missing = [k for k, v in eval_launches.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the evaluation path: {missing}")
+    torch.cuda.empty_cache()
+
+    # the exhaustive plan through the same kernel must give the Dss answer,
     # up to ties at the k-th distance
+    exact = gt_i
+    kth = gt_d[:, -1].astype(np.float64) ** 2
+    q2 = (q64 * q64).sum(-1, keepdim=True)
     d_ex, g_ex, _ = knn_query(index, q64, cfg.k, variant="exhaustive")
     d2_ex = (d_ex.double() ** 2).cpu().numpy()
     g_ex = g_ex.cpu().numpy()
-    kth = best_d[:, -1].double().cpu().numpy()
     tol_ex = 1e-5 * (q2[:, 0].double().cpu().numpy() + float(store.norms.max()))
     hits = 0
-    for i in range(64):
+    for i in range(EVAL_QUERIES):
         extra = ~np.isin(g_ex[i], exact[i])
         hits += cfg.k - int(extra.sum())
         if (np.abs(d2_ex[i][extra] - kth[i]) > tol_ex[i]).any():
-            raise SystemExit(f"exhaustive query {i} misses the exact answer")
-    say(f"recall@{cfg.k} (exhaustive through refine_topk, same queries): "
-        f"{hits / (64 * cfg.k):.4f} (misses only at k-th-distance ties)")
-    report["recall_at_k_exhaustive"] = hits / (64 * cfg.k)
+            raise SystemExit(f"exhaustive query {i} misses the Dss answer")
+    say(f"recall@{cfg.k} (exhaustive through refine_topk vs Dss, {EVAL_QUERIES} "
+        f"queries): {hits / (EVAL_QUERIES * cfg.k):.4f} (misses only at "
+        f"k-th-distance ties)")
+    report["recall_at_k_exhaustive"] = hits / (EVAL_QUERIES * cfg.k)
 
     # ---- kernels vs plain versions, at the main path's shapes -----------
     def cuda_ms(fn, iters=5, warmup=2):
@@ -355,25 +555,9 @@ def main(argv=None) -> int:
     q2v = (q64 * q64).sum(-1, keepdim=True)
     xmax = float(store.norms.max())
     tol = 1e-5 * (q2v + xmax)
-    derr = (d2_k - d2_p).abs()
-    if bool((derr > tol).any()):
-        raise SystemExit(f"refine_topk: |Δd²| {float(derr.max())} exceeds "
-                         f"1e-5·(‖q‖²+‖x‖²)")
-    gid_diff = g_k != g_p
-    kth = d2_p[:, -1:]
-    # a differing gid must sit at a near-tie: its distance within tol of the
-    # plain answer at that rank, and a set difference only at the k-th boundary
-    for i in gid_diff.any(1).nonzero()[:, 0].tolist():
-        a, b = set(g_k[i].tolist()), set(g_p[i].tolist())
-        extra = a - b
-        if extra:
-            dk_extra = d2_k[i][torch.isin(g_k[i], torch.tensor(sorted(extra), device=dev))]
-            if bool(((dk_extra - kth[i]).abs() > tol[i]).any()):
-                raise SystemExit(f"refine_topk: query {i} answer set differs "
-                                 f"away from the k-th distance")
-    say(f"refine_topk: max |Δd²| {float(derr.max()):.3g}; "
-        f"{int(gid_diff.any(1).sum())} of 64 queries differ in gid order at near-ties; "
-        f"plan width {mp}, live width {live_w}, cap {cap}")
+    rt_err, rt_differ = assert_same_topk("refine_topk", d2_k, g_k, d2_p, g_p, tol)
+    say(f"refine_topk: max |Δd²| {rt_err:.3g}; {rt_differ} of 64 queries differ "
+        f"in gid order at near-ties; plan width {mp}, live width {live_w}, cap {cap}")
     uniq_kept = int(touched.sum())
     live_slots = int((sp >= 0).sum()) * cap
     nbytes = (uniq_kept * (4 * n + 4) + live_slots * 8 + 64 * n * 4
@@ -384,13 +568,86 @@ def main(argv=None) -> int:
         "name": "refine_topk", "route": "cuda",
         "source": "src/repro_torch/csrc/refine_topk.cu",
         "replaces": "src/repro/kernels/refine_topk.py:189",
-        "launches": launches["refine_topk"], "max_abs_err": float(derr.max()),
+        "launches": launches["refine_topk"], "max_abs_err": rt_err,
         "ms": cuda_ms(lambda: refine_topk(store.data, store.norms, store.rec_dfs,
                                           store.rec_gid, q64, sp, lo_, hi_, k)),
         "plain_ms": cuda_ms(plain_refine, iters=2, warmup=1),
         "bound_ms": bms, "bound_by": bby, "library_ms": None,
         "kept_pairs": kept_pairs[0], "unique_kept_records": uniq_kept,
         "shape": f"Q=64 MP={mp} (live {live_w}) cap={cap} n={n} k={k}"})
+
+    for row in kernels:
+        row["path"] = "serve"
+
+    # pairwise_l2 on one Dss chunk: 64 queries x 2^20 series
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x_c = data[:SCAN_CHUNK]
+    c_n = x_c.shape[0]
+    d_k = ops.pairwise_l2(q64, x_c)
+    d_p = pairwise_l2_plain(q64, x_c)
+    tol = 1e-5 * (q2v + (x_c * x_c).sum(-1)[None, :])
+    l2_err = (d_k - d_p).abs()
+    if bool((l2_err > tol).any()):
+        raise SystemExit(f"pairwise_l2: |Δd²| {float(l2_err.max())} exceeds "
+                         f"1e-5·(‖q‖²+‖x‖²)")
+    l2_err = float(l2_err.max())
+    say(f"pairwise_l2: max |Δd²| {l2_err:.3g} over [64, {c_n}] (n={n})")
+    del d_k, d_p, tol
+    bms, bby = bound_ms(4 * (c_n * n + 64 * n + 64 * c_n), 2 * 64 * c_n * n)
+    kernels.append({
+        "name": "pairwise_l2", "route": "cuda", "source": "src/repro_torch/csrc/l2.cu",
+        "replaces": "src/repro/kernels/l2.py:60", "path": "eval",
+        "launches": eval_launches["pairwise_l2"], "max_abs_err": l2_err,
+        "ms": cuda_ms(lambda: ops.pairwise_l2(q64, x_c)),
+        "plain_ms": cuda_ms(lambda: pairwise_l2_plain(q64, x_c)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: ((q64 * q64).sum(-1, keepdim=True)
+                                       - 2 * (q64 @ x_c.T)
+                                       + (x_c * x_c).sum(-1)[None, :]).clamp_min(0)),
+        "library_call": "(q2 - 2*(q @ x.T) + x2).clamp_min(0), TF32 off",
+        "shape": f"[64,{n}] x [{c_n},{n}] -> [64,{c_n}]"})
+
+    # qdots on the rows of the adaptive plan above, compacted to its live
+    # width, for the first qc queries (about 2 GB of rows)
+    pid = spc[:qc].clamp(min=0).long()
+    q_r = pid.shape[0]
+    rows_q = store.data[pid].reshape(q_r, live_w * cap, n)
+    qq = q64[:q_r].contiguous()
+    o_k = ops.qdots(qq, rows_q)
+    o_p = qdots_plain(qq, rows_q)
+    tol = 1e-5 * (q2v[:q_r] + store.norms[pid].reshape(q_r, -1))
+    qd_err = (o_k - o_p).abs()
+    if bool((qd_err > tol).any()):
+        raise SystemExit(f"qdots: |Δ| {float(qd_err.max())} exceeds 1e-5·(‖q‖²+‖x‖²)")
+    qd_err = float(qd_err.max())
+    del o_k, o_p, tol
+    # and the dense refine on the card (qdots) against the fused kernel
+    (d_dn, g_dn), dense_s = sync_wall(lambda: refine(store, q64, spc, loc, hic, k,
+                                                     use_kernel=False))
+    (d_fu, g_fu), fused_s = sync_wall(lambda: refine(store, q64, spc, loc, hic, k,
+                                                     use_kernel=True))
+    dn_err, dn_differ = assert_same_topk("dense refine (qdots) vs fused",
+                                         d_dn.double() ** 2, g_dn,
+                                         d_fu.double() ** 2, g_fu, tol=1e-5 * (q2v.double() + xmax))
+    say(f"qdots: max |Δ| {qd_err:.3g} over [{q_r}, {live_w * cap}, {n}]; dense refine "
+        f"(qdots) vs fused refine_topk on the live-width adaptive plan: max |Δd²| "
+        f"{dn_err:.3g}, {dn_differ} of 64 queries differ at near-ties "
+        f"({dense_s * 1e3:.1f} ms vs {fused_s * 1e3:.1f} ms)")
+    c_r = live_w * cap
+    bms, bby = bound_ms(4 * (q_r * c_r * n + q_r * n + q_r * c_r), 2 * q_r * c_r * n)
+    kernels.append({
+        "name": "qdots", "route": "cuda", "source": "src/repro_torch/csrc/l2.cu",
+        "replaces": "src/repro/kernels/l2.py:100", "path": "eval",
+        "launches": eval_launches["qdots"], "max_abs_err": qd_err,
+        "ms": cuda_ms(lambda: ops.qdots(qq, rows_q)),
+        "plain_ms": cuda_ms(lambda: qdots_plain(qq, rows_q)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: torch.bmm(rows_q, qq[:, :, None])),
+        "library_call": "torch.bmm(rows, q[:, :, None])",
+        "dense_refine_ms": dense_s * 1e3, "fused_refine_ms": fused_s * 1e3,
+        "dense_vs_fused_max_abs_err": dn_err,
+        "shape": f"q [{q_r},{n}], rows [{q_r},{c_r},{n}] -> [{q_r},{c_r}]"})
+    del rows_q
 
     line = json.dumps({"kernels": kernels})
     report["kernels"] = kernels

@@ -17,9 +17,10 @@ from repro_torch.core.index import (ClimberIndex, PartitionStore, build_index,
                                     build_store, index_from_arrays)
 from repro_torch.core.query import (QueryPlan, candidates_scanned, compact_plan,
                                     default_slot_budget, get_planner, knn_query,
-                                    plan, plan_adaptive, plan_exhaustive,
-                                    plan_knn, plan_od_smallest, planner_names,
-                                    register_planner)
+                                    make_recall_target_planner, plan,
+                                    plan_adaptive, plan_exhaustive, plan_knn,
+                                    plan_od_smallest, planner_names,
+                                    register_planner, register_recall_target)
 from repro_torch.core.refine import (PAD_DIST, default_use_kernel,
                                      dispatch_refine, merge_topk, refine,
                                      resolve_use_kernel)
@@ -35,7 +36,8 @@ __all__ = [
     "PartitionStore", "build_index", "build_store", "index_from_arrays",
     "QueryPlan", "knn_query", "plan", "plan_knn", "plan_adaptive",
     "plan_exhaustive", "plan_od_smallest", "register_planner", "get_planner",
-    "planner_names", "compact_plan", "default_slot_budget",
+    "planner_names", "make_recall_target_planner", "register_recall_target",
+    "compact_plan", "default_slot_budget",
     "candidates_scanned", "dispatch_refine", "refine", "merge_topk",
     "PAD_DIST", "default_use_kernel", "resolve_use_kernel",
 ]

@@ -237,18 +237,31 @@ def index_from_arrays(arrays: Mapping[str, np.ndarray], cfg: ClimberConfig,
     """
     dev = resolve_device(device)
     t = lambda a: torch.from_numpy(np.array(a)).to(dev)
-    store = PartitionStore(*[t(arrays["store_" + name])
-                             for name in PartitionStore._fields])
-    tables = {name: np.asarray(arrays["forest_" + name]) for name in FOREST_ARRAYS}
+    store = store_from_arrays(arrays, dev)
     pivots = t(arrays["pivots"]).float()
     if pivots.shape != (cfg.num_pivots, cfg.paa_segments):
         raise ValueError(f"pivots have shape {tuple(pivots.shape)}, cfg wants "
                          f"{(cfg.num_pivots, cfg.paa_segments)}")
-    per_node = np.diff(tables["part_start"])
-    forest = TrieForest(**tables, num_partitions=store.num_partitions,
-                        num_pivots=cfg.num_pivots,
-                        max_parts_per_node=int(per_node.max()) if per_node.size else 1)
+    forest = forest_from_arrays(arrays, store.num_partitions, cfg.num_pivots)
     return ClimberIndex(cfg=cfg, pivots=pivots,
                         centroid_onehot=t(arrays["centroid_onehot"]).float(),
                         forest=forest, trie=TrieDevice.from_forest(forest, dev),
                         store=store)
+
+
+def store_from_arrays(arrays: Mapping[str, np.ndarray],
+                      device: torch.device) -> PartitionStore:
+    """The store from its ``store_<field>`` arrays, on ``device``."""
+    return PartitionStore(*[torch.from_numpy(np.array(arrays["store_" + name])).to(device)
+                            for name in PartitionStore._fields])
+
+
+def forest_from_arrays(arrays: Mapping[str, np.ndarray], num_partitions: int,
+                       num_pivots: int) -> TrieForest:
+    """The host forest from its ``forest_<name>`` tables; the parts-per-node
+    bound is re-derived from ``part_start``."""
+    tables = {name: np.asarray(arrays["forest_" + name]) for name in FOREST_ARRAYS}
+    per_node = np.diff(tables["part_start"])
+    return TrieForest(**tables, num_partitions=num_partitions,
+                      num_pivots=num_pivots,
+                      max_parts_per_node=int(per_node.max()) if per_node.size else 1)

@@ -21,12 +21,15 @@ by stable sorts, which keep the lowest-index tie-break.
 
 :func:`plan` runs a registered planner and compacts the plan to a static
 slot budget (:func:`compact_plan`, :func:`default_slot_budget`);
-:func:`knn_query` composes featurize → plan → refine.  The JAX package's
-device-planner registry (``ShardPlanContext``) and recall-target planners
-wait for the fleet slice.
+:func:`knn_query` composes featurize → plan → refine.
+:func:`make_recall_target_planner` / :func:`register_recall_target` add an
+adaptive variant that spends more (host planners only).  The JAX package's
+device-planner registry (``ShardPlanContext``) waits for the fleet slice.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from functools import partial
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -272,6 +275,39 @@ register_planner("knn", plan_knn)
 register_planner("adaptive", plan_adaptive)
 register_planner("od_smallest", plan_od_smallest)
 register_planner("exhaustive", plan_exhaustive)
+
+
+def make_recall_target_planner(spend_factor: float) -> Planner:
+    """An adaptive-planner variant that spends ``spend_factor`` × more.
+
+    Scales both the coverage requirement (``cfg.k``) and the partition cap
+    (``cfg.adaptive_factor``) by ``spend_factor``, rounded up, so recall
+    rises with spend; ``spend_factor == 1`` is :func:`plan_adaptive` itself.
+    The planner carries ``spend_factor`` as an attribute.
+    """
+    if spend_factor < 1.0:
+        raise ValueError(f"spend_factor must be >= 1, got {spend_factor}")
+
+    def planner(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
+        if spend_factor == 1.0:
+            return plan_adaptive(index, p4_rank_q)
+        cfg = index.cfg
+        boosted = cfg.replace(
+            k=int(math.ceil(cfg.k * spend_factor)),
+            adaptive_factor=int(math.ceil(cfg.adaptive_factor * spend_factor)))
+        return plan_adaptive(dataclasses.replace(index, cfg=boosted), p4_rank_q)
+
+    planner.spend_factor = spend_factor
+    return planner
+
+
+def register_recall_target(spend_factor: float,
+                           name: str = "recall_target") -> Planner:
+    """Register a recall-targeted variant under ``name`` (host planner);
+    re-registering a name replaces it."""
+    planner = make_recall_target_planner(spend_factor)
+    register_planner(name, planner)
+    return planner
 
 
 def default_slot_budget(index: ClimberIndex, variant: str) -> Optional[int]:

@@ -8,8 +8,10 @@ record of those targets by exact ED and keep the k best.  Backends, behind
     ``ops.fused_refine_topk_device_plan``): masked distance + k-best
     straight off the store, nothing of shape ``[Q, slots, cap]``
     materialised.  On a CPU tensor the same wrapper runs its plain version;
-  * the dense path: gathers the selected rows, masks the full distance
-    tensor, stable top-k — the parity oracle.
+  * the dense path: gathers the selected rows, takes their dots with the
+    queries through ``ops.batched_query_dots`` (the ``qdots`` kernel on the
+    card, its plain version on the CPU), masks the full distance tensor,
+    stable top-k — the parity oracle.
 
 ``use_kernel=None`` resolves by the store's device (:func:`default_use_kernel`):
 the kernel on CUDA, the dense path on the CPU.  ``use_kernel=False`` is the
@@ -62,7 +64,8 @@ def _masked_distances(store: PartitionStore, queries, sel_part, sel_lo, sel_hi):
     """Dense ``[Q, MP·cap]`` masked squared ED and gids (the oracle)."""
     sel_part, sel_lo, sel_hi = _sort_by_partition(sel_part, sel_lo, sel_hi)
     return masked_distances(store.data, store.norms, store.rec_dfs,
-                            store.rec_gid, queries, sel_part, sel_lo, sel_hi)
+                            store.rec_gid, queries, sel_part, sel_lo, sel_hi,
+                            dot_fn=kernel_ops.batched_query_dots)
 
 
 def refine(store: PartitionStore, queries: torch.Tensor, sel_part: torch.Tensor,

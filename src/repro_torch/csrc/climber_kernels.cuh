@@ -34,3 +34,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 }  // namespace climber
+
+// l2.cu: out[Q, C] = max(|q|^2 - 2 q.x + |x|^2, 0) for q [Q, n], x [C, n].
+CLIMBER_API int climber_pairwise_l2(const float* q, const float* x, float* out,
+                                    int qn, long long cn, int n, void* stream);
+// l2.cu: out[Q, C] = rows[q, c, :] . q[q, :] for q [Q, n], rows [Q, C, n].
+CLIMBER_API int climber_qdots(const float* q, const float* rows, float* out,
+                              int qn, long long cn, int n, void* stream);

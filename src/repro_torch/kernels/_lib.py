@@ -38,6 +38,8 @@ _SIGNATURES = {
     "climber_refine_topk": (_I, [_P] * 11 + [_I] * 6 + [_P]),
     "climber_refine_partial_smem": (_I64, [_I, _I, _I]),
     "climber_refine_merge_smem": (_I64, [_I, _I]),
+    "climber_pairwise_l2": (_I, [_P, _P, _P, _I, _I64, _I, _P]),
+    "climber_qdots": (_I, [_P, _P, _P, _I, _I64, _I, _P]),
     "climber_error_string": (ctypes.c_char_p, [_I]),
 }
 

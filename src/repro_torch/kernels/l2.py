@@ -1,0 +1,92 @@
+"""Pairwise squared L2 and per-query candidate dots: CUDA kernels and plain
+versions.
+
+Replaces ``repro/kernels/l2.py``:
+
+* :func:`pairwise_l2` (``pairwise_l2``): q ``[Q, n]`` × x ``[C, n]`` →
+  ``[Q, C]`` squared ED, ``max(‖q‖² − 2q·x + ‖x‖², 0)`` with fp32
+  accumulation — the exact scan behind every ground truth
+  (``baselines/dss.py``).  Bound by fp32 operations, 2n FLOPs per output.
+* :func:`qdots` (``qdots``): q ``[Q, n]``, rows ``[Q, C, n]`` → ``[Q, C]``,
+  each query against its own candidate rows — the dense refine's dot
+  product (``ops.batched_query_dots``).  Bound by HBM bytes, 2 FLOPs per
+  4 bytes of rows.
+
+Both kernels are ``csrc/l2.cu`` (see the source for the designs): fp32 FMA,
+no TF32.  CUDA tensors launch the kernel (or raise), CPU tensors take the
+plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+
+MAX_QUERIES_PER_LAUNCH = 65_535     # qdots' grid y
+
+
+def pairwise_l2_plain(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch squared ED matrix ``[Q, C]`` (``pairwise_l2_ref``)."""
+    q, x = q.float(), x.float()
+    q2 = (q * q).sum(dim=-1)[:, None]
+    x2 = (x * x).sum(dim=-1)[None, :]
+    return torch.clamp(q2 - 2.0 * (q @ x.T) + x2, min=0.0)
+
+
+def qdots_plain(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch per-query dots ``[Q, C]`` (``qdots_ref``).
+
+    An elementwise product and a last-axis sum, not a batched matmul, so
+    each row's dot is summed in one order whatever the batch."""
+    return (rows.float() * q.float()[:, None, :]).sum(dim=-1)
+
+
+def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Squared ED ``[Q, C]`` through the kernel for CUDA tensors, the plain
+    version for CPU tensors.  ``q`` ``[Q, n]``, ``x`` ``[C, n]`` float32."""
+    if not _lib.on_card(q, x):
+        return pairwise_l2_plain(q, x)
+    _lib.require(q, "pairwise_l2 q", torch.float32, 2)
+    _lib.require(x, "pairwise_l2 x", torch.float32, 2)
+    qn, n = q.shape
+    cn = x.shape[0]
+    if x.shape[1] != n:
+        raise ValueError(f"pairwise_l2: q has n={n}, x has n={x.shape[1]}")
+    out = torch.empty((qn, cn), dtype=torch.float32, device=q.device)
+    if qn == 0 or cn == 0:
+        return out
+    with torch.cuda.device(q.device):
+        _lib.check(_lib.library().climber_pairwise_l2(
+            q.data_ptr(), x.data_ptr(), out.data_ptr(), qn, cn, n,
+            _lib.stream(q.device)), "pairwise_l2")
+    pairwise_l2.launches += 1
+    return out
+
+
+def qdots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Per-query dots ``[Q, C]`` through the kernel for CUDA tensors, the
+    plain version for CPU tensors.  ``q`` ``[Q, n]``, ``rows`` ``[Q, C, n]``
+    float32."""
+    if not _lib.on_card(q, rows):
+        return qdots_plain(q, rows)
+    _lib.require(q, "qdots q", torch.float32, 2)
+    _lib.require(rows, "qdots rows", torch.float32, 3)
+    qn, n = q.shape
+    if rows.shape[0] != qn or rows.shape[2] != n:
+        raise ValueError(f"qdots: rows {tuple(rows.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    cn = rows.shape[1]
+    out = torch.empty((qn, cn), dtype=torch.float32, device=q.device)
+    lib = _lib.library()
+    with torch.cuda.device(q.device):
+        for a in range(0, qn if cn else 0, MAX_QUERIES_PER_LAUNCH):
+            b = min(qn, a + MAX_QUERIES_PER_LAUNCH)
+            _lib.check(lib.climber_qdots(
+                q[a:b].data_ptr(), rows[a:b].data_ptr(), out[a:b].data_ptr(),
+                b - a, cn, n, _lib.stream(q.device)), "qdots")
+            qdots.launches += 1
+    return out
+
+
+pairwise_l2.launches = 0
+qdots.launches = 0

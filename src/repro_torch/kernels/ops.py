@@ -4,8 +4,7 @@ counterpart).
 Each wrapper dispatches on its tensors' device: CUDA tensors launch the
 kernel (or raise), CPU tensors take the kernel's plain PyTorch version.
 Every kernel wrapper counts its launches in a ``launches`` attribute, so a
-run can show which kernels its path went through.  The ``l2`` kernels
-(``pairwise_l2``, ``qdots``) are not ported yet.
+run can show which kernels its path went through.
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.l2 import pairwise_l2, qdots
 from repro_torch.kernels.paa_kernel import paa
 from repro_torch.kernels.pivot_rank import pivot_rank
 from repro_torch.kernels.refine_topk import refine_topk
@@ -20,11 +20,12 @@ from repro_torch.kernels.refine_topk import refine_topk
 # the plan must be sorted by partition id (see kernels/refine_topk.py)
 fused_refine_topk = refine_topk
 
-KERNELS = {"paa": paa, "pivot_rank": pivot_rank, "refine_topk": refine_topk}
+KERNELS = {"paa": paa, "pivot_rank": pivot_rank, "refine_topk": refine_topk,
+           "pairwise_l2": pairwise_l2, "qdots": qdots}
 
-__all__ = ["paa", "pivot_rank", "fused_refine_topk",
-           "fused_refine_topk_device_plan", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["paa", "pivot_rank", "pairwise_l2", "qdots", "batched_query_dots",
+           "fused_refine_topk", "fused_refine_topk_device_plan",
+           "launch_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -34,6 +35,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def batched_query_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Per-entry candidate dots: rows ``[Q, MP, cap, n]`` → ``[Q, MP, cap]``,
+    through :func:`qdots` (the dense refine's dot product)."""
+    qn, mp, cap, n = rows.shape
+    return qdots(q, rows.reshape(qn, mp * cap, n)).reshape(qn, mp, cap)
 
 
 def fused_refine_topk_device_plan(data, norms, rec_dfs, rec_gid, queries,

@@ -50,16 +50,23 @@ def dedupe_segments(sel_part: torch.Tensor, incl: torch.Tensor) -> torch.Tensor:
 
 
 def masked_distances(data, norms, rec_dfs, rec_gid, queries,
-                     sel_part, sel_lo, sel_hi):
+                     sel_part, sel_lo, sel_hi, dot_fn=None):
     """Dense ``[Q, MP·cap]`` masked squared ED (``PAD_D2`` where excluded)
-    and gids (``-1``) over a partition-sorted plan."""
+    and gids (``-1``) over a partition-sorted plan.
+
+    ``dot_fn(q [Q, n], rows [Q, MP, cap, n]) -> [Q, MP, cap]`` computes the
+    dots; None is the plain expression (``ops.batched_query_dots`` runs the
+    same through the ``qdots`` kernel on the card)."""
     q = queries.float()
     pid = torch.clamp(sel_part, min=0).long()                  # clamp pads
     rows = data[pid]                                           # [Q, MP, cap, n]
     # an elementwise product and a last-axis sum, not a batched matmul, so
     # each row's dot is summed in one order whatever the batch (a query's
     # answer does not depend on the batch it rides in)
-    dots = (rows * q[:, None, None, :]).sum(dim=-1)
+    if dot_fn is None:
+        dots = (rows * q[:, None, None, :]).sum(dim=-1)
+    else:
+        dots = dot_fn(q, rows)
     q2 = (q * q).sum(dim=-1)
     d2 = torch.clamp(q2[:, None, None] - 2.0 * dots + norms[pid], min=0.0)
     rdfs, rgid = rec_dfs[pid], rec_gid[pid]

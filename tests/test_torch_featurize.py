@@ -198,4 +198,4 @@ def test_random_walk_generator():
     assert q.shape == (20, 64)
     assert all(tuple(r) in rows for r in q.numpy().round(6).tolist())
     with pytest.raises(KeyError):
-        make_dataset("sift", 10, 64, generator=g)
+        make_dataset("nope", 10, 64, generator=g)

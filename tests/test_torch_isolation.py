@@ -67,7 +67,7 @@ def test_no_library_kernel_stands_in():
                 assert node.func.attr not in banned, \
                     f"{path.name}:{node.lineno} calls .{node.func.attr}"
     csrc = REPO / "src" / "repro_torch" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"paa.cu", "pivot_rank.cu",
+    assert {p.name for p in csrc.glob("*.cu")} == {"l2.cu", "paa.cu", "pivot_rank.cu",
                                                    "refine_topk.cu"}
 
 

@@ -198,7 +198,7 @@ def test_other_devices_raise(wrapper):
 
 def test_kernel_library_sources_and_hash():
     names = sorted(p.name for p in _lib.sources())
-    assert names == ["paa.cu", "pivot_rank.cu", "refine_topk.cu"]
+    assert names == ["l2.cu", "paa.cu", "pivot_rank.cu", "refine_topk.cu"]
     h = _lib.source_hash()
     assert len(h) == 16 and h == _lib.source_hash()
     assert all(f in " ".join(_lib.NVCC_FLAGS) for f in ("sm_90a", "-O3"))
