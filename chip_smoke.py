@@ -24,10 +24,12 @@ read just after it:
 Then, off both paths, it holds each CUDA kernel against its plain PyTorch
 version on the same inputs at the paths' shapes, times both with CUDA
 events (and the one PyTorch call that computes the same function, where
-there is one), traces one more adaptive tick with ``torch.profiler``
-(device busy time and idle share), checks the engine against per-query
-``knn_query``, and requires the exhaustive plan to reproduce the Dss answer
-up to k-th-distance ties.  Any failed check raises and the script exits
+there is one; ``pivot_rank`` also at one tick's 64 query rows, with the
+profiler's device time), reads each redesigned kernel's registers and
+spills from the ``ptxas`` build log, traces one more adaptive tick with
+``torch.profiler`` (device busy time and idle share), checks the engine
+against per-query ``knn_query``, and requires the exhaustive plan to
+reproduce the Dss answer up to k-th-distance ties.  Any failed check raises and the script exits
 non-zero.  Output, in order: phase lines, one ``{"kernels": [...]}`` JSON
 line, the card's ``nvidia-smi`` name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a longer
@@ -66,6 +68,31 @@ def bound_ms(nbytes: float, flops: float):
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ptxas_table(log: str):
+    """``{kernel entry: {"registers", "spill_stores", "spill_loads"}}`` from
+    nvcc's ``-Xptxas -v`` output, entry names demangled where a demangler
+    is on the machine."""
+    table, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            entry = ln.split("'")[1]
+            table[entry] = {}
+        elif entry and "bytes spill stores" in ln:
+            f = [int(t) for t in ln.replace(",", " ").split() if t.isdigit()]
+            table[entry].update(spill_stores=f[1], spill_loads=f[2])
+        elif entry and "Used" in ln and "registers" in ln:
+            table[entry]["registers"] = int(ln.split("Used")[1].split()[0])
+    for tool in ("cu++filt", "/usr/local/cuda/bin/cu++filt", "c++filt"):
+        if shutil.which(tool) and table:
+            out = subprocess.run([tool], input="\n".join(table), text=True,
+                                 capture_output=True).stdout.splitlines()
+            if len(out) == len(table):
+                names = (o.replace("void ", "").replace("(int)", "").replace(
+                    "(bool)", "").split("::", 1)[-1].split("(")[0] for o in out)
+                return dict(zip(names, table.values()))
+    return table
 
 
 SERVE_KERNELS = ("paa", "pivot_rank", "refine_topk")
@@ -213,7 +240,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels.l2 import pairwise_l2_plain, qdots_plain
     from repro_torch.kernels.paa_kernel import paa_plain
-    from repro_torch.kernels.pivot_rank import pivot_rank_plain
+    from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain
     from repro_torch.kernels.refine_topk import PAD_D2, masked_distances, refine_topk, topk_flat
     from repro_torch.serve import ClimberEngine
     from repro_torch.utils.config import ClimberConfig
@@ -231,11 +258,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     _lib.library()
     build_s = time.perf_counter() - t
-    ptxas = [ln.strip() for ln in _lib.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_table(_lib.build_log())
     say(f"kernels: built/loaded libclimber_kernels.so in {build_s:.1f} s")
-    for ln in ptxas:
-        say(f"  ptxas {ln}")
+    for entry, v in ptxas.items():
+        say(f"  ptxas {entry}: {v}")
     report["kernel_build_s"] = build_s
     report["ptxas"] = ptxas
 
@@ -455,6 +481,24 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
+    def device_ms(fn, kernel, iters=20):
+        """Mean device time of the kernels named ``*kernel*`` per call of
+        ``fn``, from a profiler trace: at a small shape the event timing
+        above is the host's launch cost, not the kernel's."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in pr.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name)
+        return us / 1e3 / iters if us else None
+
+    def ptxas_of(kernel):
+        return {e: v for e, v in ptxas.items() if kernel in e}
+
     kernels = []
     w, n, r, m, k = cfg.paa_segments, cfg.series_len, cfg.num_pivots, cfg.prefix_len, cfg.k
     B = args.num
@@ -480,25 +524,38 @@ def main(argv=None) -> int:
 
     # pivot_rank over the dataset's PAA rows (step 4's work in one call)
     piv = index.pivots
-    s_k = ops.pivot_rank(z_k, piv, m)
-    s_p = pivot_rank_plain(z_k, piv, m)
-    bad = (s_k != s_p).any(dim=1).nonzero()[:, 0]
-    gap = 0.0
-    if bad.numel():
-        zb = z_k[bad].double()
-        d64 = ((zb[:, None, :] - piv.double()[None]) ** 2).sum(-1)   # exact
-        dk = torch.gather(d64, 1, s_k[bad].long())
-        dp = torch.gather(d64, 1, s_p[bad].long())
-        gap = float((dk - dp).abs().max())
-        tol = 1e-5 * float((zb * zb).sum(-1).max() + (piv * piv).sum(-1).max())
-        if gap > tol:
-            raise SystemExit(f"pivot_rank: {bad.numel()} rows differ with a "
-                             f"distance gap {gap} > {tol}")
-    say(f"pivot_rank: {bad.numel()} of {B} rows differ from the plain version, "
-        f"all within a distance gap of {gap:.3g}")
-    nbytes = B * w * 4 + r * w * 4 + B * m * 4
-    flops = B * r * (2 * w + 3)
-    bms, bby = bound_ms(nbytes, flops)
+
+    def check_pivot_rank(z):
+        """Kernel vs plain: rows may differ only at near-ties, within a
+        distance gap of 1e-5·(‖x‖²+‖p‖²).  Returns (rows differing, gap)."""
+        s_k = ops.pivot_rank(z, piv, m)
+        s_p = pivot_rank_plain(z, piv, m)
+        bad = (s_k != s_p).any(dim=1).nonzero()[:, 0]
+        gap = 0.0
+        if bad.numel():
+            zb = z[bad].double()
+            d64 = ((zb[:, None, :] - piv.double()[None]) ** 2).sum(-1)   # exact
+            dk = torch.gather(d64, 1, s_k[bad].long())
+            dp = torch.gather(d64, 1, s_p[bad].long())
+            gap = float((dk - dp).abs().max())
+            tol = 1e-5 * float((zb * zb).sum(-1).max() + (piv * piv).sum(-1).max())
+            if gap > tol:
+                raise SystemExit(f"pivot_rank: {bad.numel()} rows differ with a "
+                                 f"distance gap {gap} > {tol}")
+        say(f"pivot_rank: {bad.numel()} of {z.shape[0]} rows differ from the plain "
+            f"version, all within a distance gap of {gap:.3g}")
+        return int(bad.numel()), gap
+
+    bad, gap = check_pivot_rank(z_k)
+
+    def pivot_rank_bound(rows):
+        return bound_ms(rows * w * 4 + r * w * 4 + rows * m * 4, rows * r * (2 * w + 3))
+
+    def library_rank(z):       # timed only: torch.topk's tie order is not lax.top_k's
+        return torch.topk(pivot_distances_plain(z, piv), m, dim=-1, largest=False,
+                          sorted=True)
+
+    bms, bby = pivot_rank_bound(B)
     kernels.append({
         "name": "pivot_rank", "route": "cuda",
         "source": "src/repro_torch/csrc/pivot_rank.cu",
@@ -506,10 +563,27 @@ def main(argv=None) -> int:
         "launches": launches["pivot_rank"], "max_abs_err": gap,
         "ms": cuda_ms(lambda: ops.pivot_rank(z_k, piv, m)),
         "plain_ms": cuda_ms(lambda: pivot_rank_plain(z_k, piv, m), iters=2, warmup=1),
-        "bound_ms": bms, "bound_by": bby, "library_ms": None,
-        "rows_differing": int(bad.numel()),
-        "shape": f"[{B},{w}] x [{r},{w}] -> [{B},{m}]"})
-    del s_p, z_k, s_k
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": cuda_ms(lambda: library_rank(z_k), iters=2, warmup=1),
+        "library_call": "torch.topk(pivot_distances_plain(z, piv), m, largest=False), "
+                        "TF32 off",
+        "rows_differing": bad,
+        "shape": f"[{B},{w}] x [{r},{w}] -> [{B},{m}]",
+        "ptxas": ptxas_of(f"pivot_rank_kernel<{w},")})
+    del z_k
+    # and at the serving shape: one tick's featurize, 64 query rows
+    z64 = ops.paa(q64, w)
+    bad64, gap64 = check_pivot_rank(z64)
+    bms, bby = pivot_rank_bound(64)
+    kernels[-1]["serve_shape"] = {
+        "rows_differing": bad64, "max_abs_err": gap64,
+        "shape": f"[64,{w}] x [{r},{w}] -> [64,{m}]",
+        "ms": cuda_ms(lambda: ops.pivot_rank(z64, piv, m), iters=50, warmup=5),
+        "device_ms": device_ms(lambda: ops.pivot_rank(z64, piv, m), "pivot_rank"),
+        "plain_ms": cuda_ms(lambda: pivot_rank_plain(z64, piv, m), iters=50, warmup=5),
+        "library_ms": cuda_ms(lambda: library_rank(z64), iters=50, warmup=5),
+        "bound_ms": bms, "bound_by": bby}
+    say(f"pivot_rank at [64,{w}]: {json.dumps(kernels[-1]['serve_shape'])}")
 
     # refine_topk on one serving tick: 64 queries, adaptive plan (all slots)
     p4r, _ = index.featurize(q64)
@@ -639,14 +713,19 @@ def main(argv=None) -> int:
         "name": "qdots", "route": "cuda", "source": "src/repro_torch/csrc/l2.cu",
         "replaces": "src/repro/kernels/l2.py:100", "path": "eval",
         "launches": eval_launches["qdots"], "max_abs_err": qd_err,
-        "ms": cuda_ms(lambda: ops.qdots(qq, rows_q)),
+        # kernel and library in turns, 20 launches each: they differ by a
+        # few percent, about the spread of one timing
+        "ms": cuda_ms(lambda: ops.qdots(qq, rows_q), iters=20),
         "plain_ms": cuda_ms(lambda: qdots_plain(qq, rows_q)),
         "bound_ms": bms, "bound_by": bby,
-        "library_ms": cuda_ms(lambda: torch.bmm(rows_q, qq[:, :, None])),
+        "library_ms": cuda_ms(lambda: torch.bmm(rows_q, qq[:, :, None]), iters=20),
+        "ms_again": cuda_ms(lambda: ops.qdots(qq, rows_q), iters=20),
+        "library_ms_again": cuda_ms(lambda: torch.bmm(rows_q, qq[:, :, None]), iters=20),
         "library_call": "torch.bmm(rows, q[:, :, None])",
         "dense_refine_ms": dense_s * 1e3, "fused_refine_ms": fused_s * 1e3,
         "dense_vs_fused_max_abs_err": dn_err,
-        "shape": f"q [{q_r},{n}], rows [{q_r},{c_r},{n}] -> [{q_r},{c_r}]"})
+        "shape": f"q [{q_r},{n}], rows [{q_r},{c_r},{n}] -> [{q_r},{c_r}]",
+        "ptxas": ptxas_of("qdots")})
     del rows_q
 
     line = json.dumps({"kernels": kernels})

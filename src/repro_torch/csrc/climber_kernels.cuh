@@ -26,6 +26,30 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The number of SMs of the current device.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// Blocks of a persistent grid: as many as can be resident on the card at
+// once, and no more than `want`.
+template <typename Kernel>
+inline cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
+                                     long long want, unsigned* blocks) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  const long long most = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *blocks = static_cast<unsigned>(want < most ? want : most);
+  return cudaSuccess;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

@@ -34,7 +34,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> (restype, argtypes); pointers and the stream are c_void_p
 _SIGNATURES = {
     "climber_paa": (_I, [_P, _P, _I64, _I, _I, _P]),
-    "climber_pivot_rank": (_I, [_P, _P, _P, _I64, _I, _I, _I, _P]),
+    "climber_pivot_rank": (_I, [_P, _P, _P, _I64, _I, _I, _I, _I, _P]),
+    "climber_pivot_rank_smem": (_I64, [_I, _I, _I]),
     "climber_refine_topk": (_I, [_P] * 11 + [_I] * 6 + [_P]),
     "climber_refine_partial_smem": (_I64, [_I, _I, _I]),
     "climber_refine_merge_smem": (_I64, [_I, _I]),

@@ -10,7 +10,13 @@ Replaces ``repro/kernels/l2.py``:
 * :func:`qdots` (``qdots``): q ``[Q, n]``, rows ``[Q, C, n]`` → ``[Q, C]``,
   each query against its own candidate rows — the dense refine's dot
   product (``ops.batched_query_dots``).  Bound by HBM bytes, 2 FLOPs per
-  4 bytes of rows.
+  4 bytes of rows: 0.593 ms on an H100 at q ``[60, 256]``, rows
+  ``[60, 32208, 256]``.  The kernel is a persistent grid of warps that each
+  issue the streaming loads of 4 rows before reducing any, with the query
+  row in registers for n ≤ 512 (n % 4 == 0) and a scalar-load kernel of the
+  same summation order otherwise.  The first design (a block per 64 rows,
+  the query row in shared memory, one row per warp at a time) took
+  0.672–0.716 ms there, 3–6 % behind ``torch.bmm``.
 
 Both kernels are ``csrc/l2.cu`` (see the source for the designs): fp32 FMA,
 no TF32.  CUDA tensors launch the kernel (or raise), CPU tensors take the
@@ -21,9 +27,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
-
-MAX_QUERIES_PER_LAUNCH = 65_535     # qdots' grid y
-
 
 def pairwise_l2_plain(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch squared ED matrix ``[Q, C]`` (``pairwise_l2_ref``)."""
@@ -77,14 +80,13 @@ def qdots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
                          f"q {tuple(q.shape)}")
     cn = rows.shape[1]
     out = torch.empty((qn, cn), dtype=torch.float32, device=q.device)
-    lib = _lib.library()
+    if qn == 0 or cn == 0:
+        return out
     with torch.cuda.device(q.device):
-        for a in range(0, qn if cn else 0, MAX_QUERIES_PER_LAUNCH):
-            b = min(qn, a + MAX_QUERIES_PER_LAUNCH)
-            _lib.check(lib.climber_qdots(
-                q[a:b].data_ptr(), rows[a:b].data_ptr(), out[a:b].data_ptr(),
-                b - a, cn, n, _lib.stream(q.device)), "qdots")
-            qdots.launches += 1
+        _lib.check(_lib.library().climber_qdots(
+            q.data_ptr(), rows.data_ptr(), out.data_ptr(), qn, cn, n,
+            _lib.stream(q.device)), "qdots")
+    qdots.launches += 1
     return out
 
 

@@ -1,11 +1,20 @@
 """Fused pivot distances + top-m prefix (the P4→ signature): CUDA kernel
 and plain version.
 
-Replaces ``repro/kernels/pivot_rank.py::pivot_rank``.  The kernel is
-``csrc/pivot_rank.cu``: pivots in shared memory, one thread per row with a
-sorted m-long (distance, id) list in registers, fp32 FMA.  Bound by fp32
-operations: 2·r·w FLOPs per row (25.6 GFLOP-class at B = 4.2M, r = 200,
-w = 16) against 67 TFLOP/s of non-tensor fp32.  Ties go to the lower pivot
+Replaces ``repro/kernels/pivot_rank.py::pivot_rank``.  Bound by fp32
+operations: (2w + 3)·r FLOPs per row against 67 TFLOP/s of non-tensor
+fp32, 0.438 ms at [2^22, 16] × [200, 16] on an H100.  The first kernel (one
+thread per row, an insertion into a sorted m-list at every pivot that beat
+the row's m-th distance) took 13.75–13.86 ms there: the insertion diverged
+across the warp.  The kernel now is ``csrc/pivot_rank.cu``
+(1.72 ms there): a group of lanes per row (the kernel picks it from the
+batch so that the grid fills the card: 1 for the build's chunks, with two
+rows per lane, and 32 for a query batch), each lane keeping its own top-m
+list of a length fixed at compile time (exact for w = 16, m = 10, the
+configuration's); the distances of 16 pivots at a time are staged in
+shared memory, the ones that pass a branch-free filter merge only while a
+warp vote says some lane has one, and the group's lists merge by shuffle
+argmin on (distance, id).  fp32 FMA, no TF32; ties go to the lower pivot
 id, as ``jax.lax.top_k`` gives.
 """
 from __future__ import annotations
@@ -51,16 +60,16 @@ def pivot_rank(paa: torch.Tensor, pivots: torch.Tensor, m: int) -> torch.Tensor:
         return pivot_rank_plain(paa, pivots, m)
     _lib.require(paa, "pivot_rank paa", torch.float32, 2)
     _lib.require(pivots, "pivot_rank pivots", torch.float32, 2)
+    lib = _lib.library()
     if w not in KERNEL_WIDTHS or m > KERNEL_MAX_M \
-            or 4 * r * (w + 1) > _lib.SMEM_LIMIT:
+            or lib.climber_pivot_rank_smem(w, r, m) > _lib.SMEM_LIMIT:
         raise ValueError(f"pivot_rank kernel takes w in {KERNEL_WIDTHS}, "
                          f"m <= {KERNEL_MAX_M} and pivots that fit in shared "
                          f"memory; got w={w}, m={m}, r={r}")
     out = torch.empty((b, m), dtype=torch.int32, device=paa.device)
-    lib = _lib.library()
     with torch.cuda.device(paa.device):
         _lib.check(lib.climber_pivot_rank(paa.data_ptr(), pivots.data_ptr(),
-                                          out.data_ptr(), b, w, r, m,
+                                          out.data_ptr(), b, w, r, m, 0,
                                           _lib.stream(paa.device)),
                    "pivot_rank")
     pivot_rank.launches += 1

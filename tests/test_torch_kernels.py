@@ -123,6 +123,30 @@ def test_paa_plain_matches_pallas_and_ref(jk):
     np.testing.assert_array_equal(ref.paa_ref(torch.as_tensor(x), 8).numpy(), got)
 
 
+def tied_pivot_inputs(seed, rows, w, r=200, distinct=20):
+    """Integer rows and pivots drawn from ``distinct`` rows, each repeated:
+    every squared distance is exact in fp32, and ties are everywhere."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-3, 4, size=(distinct, w)).astype(np.float32)
+    piv = base[rng.integers(0, distinct, size=r)]
+    z = rng.integers(-3, 4, size=(rows, w)).astype(np.float32)
+    return z, piv
+
+
+@pytest.mark.parametrize("w,m", [(16, 1), (16, 10), (16, 32), (8, 5)])
+def test_pivot_rank_plain_ties_go_to_the_lower_id(jk, w, m):
+    """The plain version, the card tests' oracle, breaks exact ties toward
+    the lower pivot id as the Pallas kernel and ``lax.top_k`` do."""
+    jnp, jref, _, jpivot_rank, _ = jk
+    z, piv = tied_pivot_inputs(w * m, 96, w)
+    got = pivot_rank_plain(torch.as_tensor(z), torch.as_tensor(piv), m).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jpivot_rank(jnp.asarray(z), jnp.asarray(piv), m,
+                                    interpret=True)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.pivot_rank_ref(jnp.asarray(z), jnp.asarray(piv), m)))
+
+
 def test_pivot_rank_plain_matches_pallas_and_ref(jk):
     jnp, jref, _, jpivot_rank, _ = jk
     rng = np.random.default_rng(1)
@@ -231,6 +255,78 @@ def test_cuda_pivot_rank_matches_plain(cuda, w, m):
         gap = (torch.gather(d, 1, got[bad].long()) - torch.gather(d, 1, want[bad].long()))
         assert float(gap.abs().max()) <= 1e-4
     assert float(bad.float().mean()) < 0.01
+
+
+def pivot_rank_lanes(z, piv, m, lanes):
+    """The kernel with ``lanes`` lanes per row forced through its C entry
+    (the wrapper passes 0: picked from the batch)."""
+    out = torch.empty((z.shape[0], m), dtype=torch.int32, device=z.device)
+    _lib.check(_lib.library().climber_pivot_rank(
+        z.data_ptr(), piv.data_ptr(), out.data_ptr(), z.shape[0], z.shape[1],
+        piv.shape[0], m, lanes, _lib.stream(z.device)), "pivot_rank")
+    return out
+
+
+def assert_near_ties_only(got, want, z, piv, tol=1e-4):
+    """Rows of two P4→ signatures may differ only where the distances they
+    pick differ by at most ``tol`` (a near-tie under another rounding)."""
+    bad = (got != want).any(1)
+    if bad.any():
+        d = pivot_distances_plain(z[bad], piv).double()
+        gap = (torch.gather(d, 1, got[bad].long()) - torch.gather(d, 1, want[bad].long()))
+        assert float(gap.abs().max()) <= tol
+    assert float(bad.float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 64, 2 ** 18 + 7])
+def test_cuda_pivot_rank_any_batch_any_lane_group(cuda, b):
+    """One lane per row (the build's chunks), a warp per row (a query batch)
+    and the width picked from B give the same answer bit for bit."""
+    g = torch.Generator().manual_seed(b)
+    z = torch.randn((b, 16), generator=g).to(cuda)
+    piv = torch.randn((200, 16), generator=g).to(cuda)
+    got = {lanes: pivot_rank_lanes(z, piv, 10, lanes) for lanes in (0, 1, 32)}
+    assert torch.equal(got[0], ops.pivot_rank(z, piv, 10))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[32])
+    assert_near_ties_only(got[0], pivot_rank_plain(z, piv, 10), z, piv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,m,r", [(16, 10, 200), (4, 1, 3), (8, 5, 40),
+                                   (32, 16, 97), (64, 20, 200), (16, 32, 33)])
+def test_cuda_pivot_rank_list_lengths_and_widths(cuda, w, m, r):
+    """The exact m = 10 list and the 16- and 32-long lists with a runtime m,
+    at every lane-group width."""
+    g = torch.Generator().manual_seed(w * m + r)
+    z = torch.randn((3000, w), generator=g).to(cuda)
+    piv = torch.randn((r, w), generator=g).to(cuda)
+    want = pivot_rank_plain(z, piv, m)
+    first = None
+    for lanes in (1, 2, 4, 8, 16, 32):
+        got = pivot_rank_lanes(z, piv, m, lanes)
+        first = got if first is None else first
+        assert torch.equal(got, first)
+    assert_near_ties_only(first, want, z, piv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4, 32])
+def test_cuda_pivot_rank_ties_go_to_the_lower_id(cuda, lanes):
+    """Duplicated pivot rows, integer data: every distance is exact in fp32,
+    so the kernel must give the plain version's (distance, id) order."""
+    z, piv = (torch.as_tensor(a).to(cuda) for a in tied_pivot_inputs(7, 4099, 16))
+    got = pivot_rank_lanes(z, piv, 10, lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pivot_rank_plain(z, piv, 10))
+
+
+@pytest.mark.cuda
+def test_cuda_pivot_rank_refuses_pivots_beyond_shared_memory(cuda):
+    z, piv = torch.zeros((4, 64), device=cuda), torch.zeros((4000, 64), device=cuda)
+    with pytest.raises(ValueError):
+        ops.pivot_rank(z, piv, 10)
 
 
 @pytest.mark.cuda

@@ -196,3 +196,33 @@ def test_cuda_qdots_matches_plain(cuda, q, c, n):
     # one summation order per row: the same row gives the same dot in any batch
     assert torch.equal(ops.qdots(a[:1], rows[:1, : c // 2 + 1]),
                        got[:1, : c // 2 + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,c,n", [(7, 4099, 256), (5, 1, 256), (6, 333, 37),
+                                   (4, 250, 255), (3, 301, 516), (2, 77, 1024)])
+def test_cuda_qdots_tiles_and_widths(cuda, q, c, n):
+    """C not a multiple of the 4-row tile; n not a multiple of 4 and n above
+    the register path's 512 (both take the scalar-load kernel)."""
+    a = torch.as_tensor(rand(n, q, n)).to(cuda)
+    rows = torch.as_tensor(rand(n + 1, q, c, n)).to(cuda)
+    got = ops.qdots(a, rows)
+    torch.cuda.synchronize()
+    assert within_cancellation_bound(got, qdots_plain(a, rows), a,
+                                     (rows.double() ** 2).sum(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 256, 384, 512])
+def test_cuda_qdots_unaligned_rows_sum_in_the_same_order(cuda, n):
+    """Rows 4 bytes off a 16-byte boundary take the scalar-load kernel; it
+    sums each row in the register kernel's order, so the dots are equal."""
+    q, c = 3, 129
+    a = torch.as_tensor(rand(1, q, n)).to(cuda)
+    flat = torch.as_tensor(rand(2, q * c * n + 1)).to(cuda)
+    off = flat[1:].view(q, c, n)
+    assert off.data_ptr() % 16 == 4
+    got = ops.qdots(a, off)
+    assert torch.equal(got, ops.qdots(a, off.clone()))
+    assert within_cancellation_bound(got, qdots_plain(a, off), a,
+                                     (off.double() ** 2).sum(-1))
