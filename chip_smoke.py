@@ -25,8 +25,11 @@ Then, off both paths, it holds each CUDA kernel against its plain PyTorch
 version on the same inputs at the paths' shapes, times both with CUDA
 events (and the one PyTorch call that computes the same function, where
 there is one; ``pivot_rank`` also at one tick's 64 query rows, with the
-profiler's device time), reads each redesigned kernel's registers and
-spills from the ``ptxas`` build log, traces one more adaptive tick with
+profiler's device time; ``refine_topk`` on three plans — adaptive on
+queries 0-63, adaptive on the traced tick's queries 64-127, and
+``od_smallest`` — each with the (query, record) pairs it keeps, the
+distinct records behind them and its byte bound), reads each redesigned
+kernel's registers and spills from the ``ptxas`` build log, traces one more adaptive tick with
 ``torch.profiler`` (device busy time and idle share), checks the engine
 against per-query ``knn_query``, and requires the exhaustive plan to
 reproduce the Dss answer up to k-th-distance ties.  Any failed check raises and the script exits
@@ -241,7 +244,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.l2 import pairwise_l2_plain, qdots_plain
     from repro_torch.kernels.paa_kernel import paa_plain
     from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain
-    from repro_torch.kernels.refine_topk import PAD_D2, masked_distances, refine_topk, topk_flat
+    from repro_torch.kernels.refine_topk import (masked_distances, refine_topk,
+                                                 refine_work, topk_flat)
     from repro_torch.serve import ClimberEngine
     from repro_torch.utils.config import ClimberConfig
 
@@ -585,70 +589,83 @@ def main(argv=None) -> int:
         "bound_ms": bms, "bound_by": bby}
     say(f"pivot_rank at [64,{w}]: {json.dumps(kernels[-1]['serve_shape'])}")
 
-    # refine_topk on one serving tick: 64 queries, adaptive plan (all slots)
-    p4r, _ = index.featurize(q64)
-    qp = plan_queries(index, p4r, variant="adaptive")
-    order = torch.argsort(qp.sel_part, dim=-1, stable=True)
-    sp, lo_, hi_ = (torch.gather(t_, 1, order).contiguous()
-                    for t_ in (qp.sel_part, qp.sel_lo, qp.sel_hi))
-    mp = sp.shape[1]
-    d2_k, g_k = refine_topk(store.data, store.norms, store.rec_dfs,
-                            store.rec_gid, q64, sp, lo_, hi_, k)
-    # plain version on the plan compacted to its live width (pads sort first,
-    # so the last columns hold every live entry in the same relative order)
-    live_w = int((sp >= 0).sum(1).max())
-    spc, loc, hic = sp[:, -live_w:], lo_[:, -live_w:], hi_[:, -live_w:]
+    # refine_topk on three plans: one serving tick (queries 0-63, adaptive),
+    # the traced tick's batch (64-127) and od_smallest (0-63), each sorted by
+    # partition at its full width and held against the plain version on the
+    # plan compacted to its live width (pads sort first, so the last columns
+    # hold every live entry in the same relative order)
     cap = store.capacity
-    qc = max(1, int(2e9 // (live_w * cap * n * 4)))
 
-    def plain_refine(collect=None):
-        outs = []
-        for a in range(0, 64, qc):
-            sl = slice(a, a + qc)
-            d2, g = masked_distances(store.data, store.norms, store.rec_dfs,
-                                     store.rec_gid, q64[sl], spc[sl], loc[sl], hic[sl])
-            if collect is not None:
-                collect(sl, d2)
-            outs.append(topk_flat(d2, g, k))
+    def refine_plan(qs, variant):
+        p4r, _ = index.featurize(qs)
+        qp = plan_queries(index, p4r, variant=variant)
+        order = torch.argsort(qp.sel_part, dim=-1, stable=True)
+        sp, lo_, hi_ = (torch.gather(t_, 1, order).contiguous()
+                        for t_ in (qp.sel_part, qp.sel_lo, qp.sel_hi))
+        live_w = int((sp >= 0).sum(1).max())
+        return sp, lo_, hi_, live_w
+
+    def plain_refine(qs, sp, lo_, hi_, live_w):
+        qc = max(1, int(2e9 // (live_w * cap * n * 4)))
+        outs = [topk_flat(*masked_distances(
+            store.data, store.norms, store.rec_dfs, store.rec_gid, qs[a:a + qc],
+            sp[a:a + qc, -live_w:], lo_[a:a + qc, -live_w:], hi_[a:a + qc, -live_w:]), k)
+            for a in range(0, qs.shape[0], qc)]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
-    touched = torch.zeros(store.num_partitions, cap, dtype=torch.bool, device=dev)
-    kept_pairs = [0]
-
-    def collect(sl, d2):
-        kept = (d2 < PAD_D2).view(d2.shape[0], live_w, cap)
-        kept_pairs[0] += int(kept.sum())
-        pid = spc[sl].clamp(min=0).long()
-        slots = torch.zeros_like(touched, dtype=torch.int32)
-        slots.index_put_((pid[:, :, None].expand(-1, -1, cap),
-                          torch.arange(cap, device=dev).expand_as(kept)),
-                         kept.to(torch.int32), accumulate=True)
-        touched.logical_or_(slots > 0)
-
-    d2_p, g_p = plain_refine(collect)
-    q2v = (q64 * q64).sum(-1, keepdim=True)
     xmax = float(store.norms.max())
-    tol = 1e-5 * (q2v + xmax)
-    rt_err, rt_differ = assert_same_topk("refine_topk", d2_k, g_k, d2_p, g_p, tol)
-    say(f"refine_topk: max |Δd²| {rt_err:.3g}; {rt_differ} of 64 queries differ "
-        f"in gid order at near-ties; plan width {mp}, live width {live_w}, cap {cap}")
-    uniq_kept = int(touched.sum())
-    live_slots = int((sp >= 0).sum()) * cap
-    nbytes = (uniq_kept * (4 * n + 4) + live_slots * 8 + 64 * n * 4
-              + 3 * 64 * mp * 4 + 64 * k * 8)
-    flops = kept_pairs[0] * (2 * n + 3)
-    bms, bby = bound_ms(nbytes, flops)
+    rt_plans, rt_err = {}, 0.0
+    for label, qs, variant in (("adaptive q0-63", q64, "adaptive"),
+                               ("adaptive q64-127 (traced tick)",
+                                queries[64:128].contiguous(), "adaptive"),
+                               ("od_smallest q0-63", q64, "od_smallest")):
+        sp, lo_, hi_, live_w = refine_plan(qs, variant)
+        d2_k, g_k = refine_topk(store.data, store.norms, store.rec_dfs,
+                                store.rec_gid, qs, sp, lo_, hi_, k)
+        d2_p, g_p = plain_refine(qs, sp, lo_, hi_, live_w)
+        tol = 1e-5 * ((qs * qs).sum(-1, keepdim=True) + xmax)
+        err, differ = assert_same_topk(f"refine_topk [{label}]", d2_k, g_k, d2_p, g_p, tol)
+        rt_err = max(rt_err, err)
+        del d2_p, g_p
+        work = refine_work(store.rec_dfs, store.rec_gid, sp[:, -live_w:],
+                           lo_[:, -live_w:], hi_[:, -live_w:])
+        mp = sp.shape[1]
+        nbytes = (work["unique_kept_records"] * (4 * n + 4) + work["live_slots"] * 8
+                  + qs.shape[0] * n * 4 + 3 * qs.shape[0] * mp * 4 + qs.shape[0] * k * 8)
+        bms, bby = bound_ms(nbytes, work["kept_pairs"] * (2 * n + 3))
+        rt_plans[label] = dict(
+            work, mp=mp, live_width=live_w, max_abs_err=err, gid_queries_differ=differ,
+            ms=cuda_ms(lambda: refine_topk(store.data, store.norms, store.rec_dfs,
+                                           store.rec_gid, qs, sp, lo_, hi_, k)),
+            device_ms=device_ms(lambda: refine_topk(store.data, store.norms, store.rec_dfs,
+                                                    store.rec_gid, qs, sp, lo_, hi_, k),
+                                "refine", iters=5),
+            bound_ms=bms, bound_by=bby)
+        say(f"refine_topk [{label}]: max |Δd²| {err:.3g}; {differ} of {qs.shape[0]} "
+            f"queries differ in gid order at near-ties; " + json.dumps(
+                {a: (round(b, 4) if isinstance(b, float) else b)
+                 for a, b in rt_plans[label].items()}))
+        if label.startswith("adaptive q0-63"):
+            main_plan = (sp, lo_, hi_, live_w)
+    sp, lo_, hi_, live_w = main_plan
+    spc, loc, hic = sp[:, -live_w:], lo_[:, -live_w:], hi_[:, -live_w:]
+    qc = max(1, int(2e9 // (live_w * cap * n * 4)))
+    q2v = (q64 * q64).sum(-1, keepdim=True)
+    main = rt_plans["adaptive q0-63"]
     kernels.append({
         "name": "refine_topk", "route": "cuda",
         "source": "src/repro_torch/csrc/refine_topk.cu",
         "replaces": "src/repro/kernels/refine_topk.py:189",
         "launches": launches["refine_topk"], "max_abs_err": rt_err,
-        "ms": cuda_ms(lambda: refine_topk(store.data, store.norms, store.rec_dfs,
-                                          store.rec_gid, q64, sp, lo_, hi_, k)),
-        "plain_ms": cuda_ms(plain_refine, iters=2, warmup=1),
-        "bound_ms": bms, "bound_by": bby, "library_ms": None,
-        "kept_pairs": kept_pairs[0], "unique_kept_records": uniq_kept,
-        "shape": f"Q=64 MP={mp} (live {live_w}) cap={cap} n={n} k={k}"})
+        "ms": main["ms"],
+        "plain_ms": cuda_ms(lambda: plain_refine(q64, sp, lo_, hi_, live_w),
+                            iters=2, warmup=1),
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "kept_pairs": main["kept_pairs"],
+        "unique_kept_records": main["unique_kept_records"],
+        "shape": f"Q=64 MP={sp.shape[1]} (live {live_w}) cap={cap} n={n} k={k}",
+        "plans": rt_plans,
+        "ptxas": ptxas_of("refine_")})
 
     for row in kernels:
         row["path"] = "serve"
@@ -679,7 +696,8 @@ def main(argv=None) -> int:
                                        - 2 * (q64 @ x_c.T)
                                        + (x_c * x_c).sum(-1)[None, :]).clamp_min(0)),
         "library_call": "(q2 - 2*(q @ x.T) + x2).clamp_min(0), TF32 off",
-        "shape": f"[64,{n}] x [{c_n},{n}] -> [64,{c_n}]"})
+        "shape": f"[64,{n}] x [{c_n},{n}] -> [64,{c_n}]",
+        "ptxas": ptxas_of("pairwise_l2_kernel")})
 
     # qdots on the rows of the adaptive plan above, compacted to its live
     # width, for the first qc queries (about 2 GB of rows)

@@ -2,21 +2,36 @@
 //
 // Replaces the two Pallas kernels of repro/kernels/l2.py:
 //
-//   * pairwise_l2 (_l2_kernel): q [Q, n] x x [C, n] -> [Q, C],
-//     max(|q|^2 - 2 q.x + |x|^2, 0) with fp32 accumulation.  It is the
-//     exact scan (Dss) and so the ground truth of every recall number.
-//     Bound by fp32 operations: 2n FLOPs per output against 4 bytes written
-//     (n = 256: 512 FLOPs per output; the inputs are re-read from L2).
-//     Design: a shared-memory tiled FMA product, as a plain SGEMM with both
-//     operands k-contiguous.  A block owns a 64 (queries) x 128 (candidates)
-//     output tile; 256 threads each keep a 4 x 8 register tile and walk n in
-//     steps of 16, with the two operand tiles stored k-major in shared
-//     memory so a thread reads its 4 + 8 operands as three 16-byte loads.
-//     Four warps also sum the squares of the tile rows they see, so the row
-//     norms come out of the same pass in a fixed order.  The epilogue clamps
-//     at 0 and writes with 16-byte stores.  Full fp32 FMA, no TF32.  Offsets
-//     are 64-bit: C * n passes 2^31 at a 2^23-row scan.
-//
+//   * pairwise_l2 (_l2_kernel, the pallas_call at repro/kernels/l2.py:60):
+//     q [Q, n] x x [C, n] -> [Q, C], max(|q|^2 - 2 q.x + |x|^2, 0) with fp32
+//     FMA accumulation.  It is the exact scan (Dss) and so the ground truth
+//     of every recall number: no TF32, no tensor cores, and out[i, j] sums
+//     q_i . x_j, |q_i|^2 and |x_j|^2 each with fmaf in ascending k, so its
+//     bits depend on n alone (not on Q, C, the chunk's row offset or the
+//     block); there is no split-K.  Offsets are 64-bit.
+//     Bound by fp32 operations: 2n FLOPs per output, 0.513 ms at the Dss
+//     chunk [64, 256] x [2^20, 256] on an H100 (67 TFLOP/s; the 1.07 GB of
+//     candidates alone take 0.32 ms at 3.35 TB/s).
+//     The first design (a block per 64 x 128 output tile, both operand tiles
+//     loaded through registers behind one barrier per 16-deep k step, a 4 x 8
+//     register tile, 2-way conflicts on the transposing stores, and the same
+//     64 KB query tile re-read by each of 8,192 blocks per chunk) took
+//     1.419-1.432 ms there, 36% of the peak.
+//     This design: a persistent grid, one 256-thread block per SM, walks
+//     (query tile, candidate tile) items of 64 queries x 256 candidates.  The
+//     block keeps its query tile k-major in shared memory (64 x 256 at
+//     n <= 256; longer rows in 256-deep chunks) and |q|^2 beside it, loaded
+//     once per query tile.  Candidate tiles stream row-major through a
+//     2-slice ring of 256 x 64 slices filled by cp.async (16-byte copies,
+//     zero-filled past the edges), so the next slice loads while the FMAs
+//     run and while the epilogue writes; rows are padded to 68 floats, so
+//     the float4 reads of 8 consecutive rows hit 32 distinct banks.  Each
+//     thread keeps an 8 x 8 register tile (8 queries x 8 candidates, 16
+//     float4 shared loads per 256 FMAs); every thread also sums the squares
+//     of one tile row as its slices arrive.  The walk's bookkeeping divides
+//     only when it moves to another item, and each 16-byte copy costs a
+//     pointer step and a compare.  Odd n or unaligned rows take
+//     4-byte copies into the same layout, with the same summation order.
 //   * qdots (_qdots_kernel): q [Q, n], rows [Q, C, n] -> [Q, C], each query
 //     against its own candidate rows (the dense refine's dot product).
 //     Bound by HBM bytes: 2 FLOPs per 4 bytes of rows; 0.593 ms for the
@@ -39,120 +54,237 @@
 namespace {
 
 // ---- pairwise_l2 ---------------------------------------------------------
-constexpr int kBM = 64;                    // queries per block
-constexpr int kBN = 128;                   // candidates per block
-constexpr int kBK = 16;                    // depth of one operand tile
-constexpr int kTM = 4;                     // queries per thread
-constexpr int kTN = 8;                     // candidates per thread (2 x 4)
-constexpr int kL2Threads = (kBM / kTM) * (kBN / kTN);   // 256
+constexpr int kPQ = 64;                   // queries per query tile
+constexpr int kPWarpsC = 4;               // warps along the candidates (x 2 along q)
+constexpr int kPJ = 8;                    // candidates per thread (8 queries each)
+constexpr int kPC = 8 * kPJ * kPWarpsC;   // candidates per candidate tile
+constexpr int kPK = 64;                   // depth of one ring slice
+constexpr int kPStages = 2;               // ring slices in flight
+constexpr int kPKC = 256;                 // depth of the resident query chunk
+constexpr int kPThreads = 64 * kPWarpsC;  // 2 x kPWarpsC warps
+constexpr int kPNorm = kPC / kPThreads;   // tile rows whose |x|^2 a thread sums
+constexpr int kPMinBlocks = 1;            // blocks per SM
+constexpr int kQPitch = kPQ + 4;          // query chunk, k-major [kPKC][kQPitch]
+constexpr int kCPitch = kPK + 4;          // ring slice, row-major [kPC][kCPitch]
+constexpr size_t kPairSmem =
+    sizeof(float) * (static_cast<size_t>(kPKC) * kQPitch +
+                     static_cast<size_t>(kPStages) * kPC * kCPitch + kPQ);
 
-// Load rows [row0, row0 + ROWS) x depth [k0, k0 + kBK) of a k-contiguous
-// matrix into dst[k][row] (k-major), zero past the edges.
-template <int ROWS>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          long long nrows, int n, long long row0,
-                                          int k0, bool vec4,
-                                          float (*dst)[ROWS + 4]) {
-  constexpr int kQuads = ROWS * kBK / 4;   // 16-byte chunks in the tile
-  for (int i = threadIdx.x; i < kQuads; i += kL2Threads) {
-    const int r = i / (kBK / 4);
-    const int kk = (i % (kBK / 4)) * 4;
-    const long long gr = row0 + r;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (gr < nrows) {
-      const float* p = src + gr * n + k0 + kk;
-      if (vec4 && k0 + kk + 4 <= n) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k0 + kk + j < n) v[j] = __ldg(p + j);
-      }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// A step of a block's walk: work item `item` (query tile qt, candidate rows
+// from c0), ring slice ks of it, held in ring slot `slot`.  Advancing costs
+// a division only when the item changes.
+struct Cursor {
+  long long item, qt, c0;
+  int ks, slot;
+  __device__ void locate(long long ctiles) {
+    qt = item / ctiles;
+    c0 = (item - qt * ctiles) * kPC;
+  }
+  __device__ void advance(int nk, long long ctiles) {
+    slot = slot + 1 == kPStages ? 0 : slot + 1;
+    if (++ks == nk) {
+      ks = 0;
+      item += gridDim.x;
+      locate(ctiles);
     }
+  }
+};
+
+// Issue the copies of ring slice `ks` (depth [ks * kPK, +kPK)) of candidate
+// rows [c0, c0 + kPC) into dst, zero past C and past n.  With 16-byte
+// copies a thread always takes the same column and every kRowStep-th row,
+// so each copy costs a pointer step and a compare, not a row division.
+constexpr int kQuadsPerRow = kPK / 4;
+constexpr int kRowStep = kPThreads / kQuadsPerRow;
+template <bool VEC>
+__device__ __forceinline__ void load_slice(float* dst, const float* __restrict__ x,
+                                           long long cn, int n, long long c0,
+                                           int ks) {
+  const int k0 = ks * kPK;
+  if (VEC) {
+    const int r0 = threadIdx.x / kQuadsPerRow, c4 = (threadIdx.x % kQuadsPerRow) * 4;
+    const long long left = cn - c0 - r0;          // rows of this thread in range
+    const bool col = k0 + c4 < n;
+    const float* src = x + (c0 + r0) * n + k0 + c4;
+    const long long step = static_cast<long long>(kRowStep) * n;
+    float* d = dst + r0 * kCPitch + c4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dst[kk + j][r] = v[j];
+    for (int t = 0; t < kPC / kRowStep; ++t) {
+      const bool full = col && t * kRowStep < left;
+      cp_async16(d + t * kRowStep * kCPitch, full ? src : x, full);
+      src += step;
+    }
+  } else {
+    for (int i = threadIdx.x; i < kPC * kPK; i += kPThreads) {
+      const int r = i / kPK, c = i % kPK;
+      const bool full = c0 + r < cn && k0 + c < n;
+      cp_async4(dst + r * kCPitch + c, full ? x + (c0 + r) * n + k0 + c : x, full);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kL2Threads)
+template <bool VEC>
+__global__ void __launch_bounds__(kPThreads, kPMinBlocks)
 pairwise_l2_kernel(const float* __restrict__ q, const float* __restrict__ x,
                    float* __restrict__ out, int qn, long long cn, int n,
-                   int vec4_in, int vec4_out) {
-  __shared__ __align__(16) float as[kBK][kBM + 4];
-  __shared__ __align__(16) float bs[kBK][kBN + 4];
-  __shared__ float sq2[kBM];
-  __shared__ float sx2[kBN];
+                   long long ctiles, long long items) {
+  extern __shared__ __align__(16) float psm[];
+  float* qs = psm;                                        // [kPKC][kQPitch]
+  float* ring = qs + kPKC * kQPitch;                      // [kPStages][kPC][kCPitch]
+  float* q2s = ring + kPStages * kPC * kCPitch;           // [kPQ]
 
   const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);        // 0..15: candidate columns
-  const int ty = tid / (kBN / kTN);        // 0..15: query rows
-  const long long c0 = blockIdx.x * static_cast<long long>(kBN);
-  const int q0 = blockIdx.y * kBM;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wq = warp / kPWarpsC, wc = warp % kPWarpsC;  // 2 x kPWarpsC warps
+  const int ty = lane >> 3, tx = lane & 7;                // 4 x 8 lanes
+  const int qoff = wq * 32 + ty * 8;                      // this thread's 8 queries
+  const int coff = wc * 8 * kPJ + tx;                     // ... and candidates coff + 8j
+  const int nk = static_cast<int>(climber::ceil_div(n, kPK));
+  const long long mine =
+      blockIdx.x < items ? climber::ceil_div(items - blockIdx.x, gridDim.x) : 0;
+  const long long steps = mine * nk;
 
-  float acc[kTM][kTN];
+  // two cursors over this block's (item, slice) steps: one for the slices
+  // being computed, one kPStages - 1 steps ahead for the copies
+  Cursor cur{blockIdx.x, 0, 0, 0, 0}, pf{blockIdx.x, 0, 0, 0, 0};
+  cur.locate(ctiles);
+  pf.locate(ctiles);
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  float norm = 0.f;   // warps 0-1: |q|^2 of row tid; warps 2-5: |x|^2
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    load_tile<kBM>(q, qn, n, q0, k0, vec4_in, as);
-    load_tile<kBN>(x, cn, n, c0, k0, vec4_in, bs);
-    __syncthreads();
-    if (tid < kBM) {
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) norm = fmaf(as[kk][tid], as[kk][tid], norm);
-    } else if (tid < kBM + kBN) {
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk)
-        norm = fmaf(bs[kk][tid - kBM], bs[kk][tid - kBM], norm);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&as[kk][ty * kTM]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float4 c4 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4 + kBN / 2]);
-      const float a[kTM] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[kTN] = {b4.x, b4.y, b4.z, b4.w, c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < kPStages - 1; ++s) {
+    if (s < steps) load_slice<VEC>(ring + pf.slot * kPC * kCPitch, x, cn, n, pf.c0, pf.ks);
+    pf.advance(nk, ctiles);
+    cp_async_commit();
   }
-  if (tid < kBM) {
-    sq2[tid] = norm;
-  } else if (tid < kBM + kBN) {
-    sx2[tid - kBM] = norm;
-  }
-  __syncthreads();
 
+  float acc[8][kPJ];
+  float xn[kPNorm];                // |x|^2 of tile rows tid + i kPThreads, ascending k
+  long long cur_qt = -1;
+  int cur_chunk = -1;
+  for (long long t = 0; t < steps; ++t, cur.advance(nk, ctiles)) {
+    cp_async_wait<kPStages - 2>();
+    __syncthreads();               // slice t has landed; slice t - 1 is free
+    if (t + kPStages - 1 < steps)
+      load_slice<VEC>(ring + pf.slot * kPC * kCPitch, x, cn, n, pf.c0, pf.ks);
+    pf.advance(nk, ctiles);
+    cp_async_commit();
+    const long long qt = cur.qt;
+    const long long c0 = cur.c0;
+    const int ks = cur.ks;
+    const int k0 = ks * kPK;
+    const int chunk = k0 / kPKC;
+    if (qt != cur_qt || chunk != cur_chunk) {
+      // (re)load the resident query chunk: every thread is past the barrier
+      // above, so nobody still reads the old one
+      const int kc0 = chunk * kPKC;
+      for (int i = tid; i < kPQ * kPKC; i += kPThreads) {
+        const int ql = i / kPKC, kl = i % kPKC;
+        const long long gq = qt * kPQ + ql;
+        qs[kl * kQPitch + ql] =
+            gq < qn && kc0 + kl < n ? __ldg(q + gq * n + kc0 + kl) : 0.f;
+      }
+      if (qt != cur_qt && tid < kPQ) {
+        const long long gq = qt * kPQ + tid;
+        float a2 = 0.f;
+        if (gq < qn)
+          for (int k = 0; k < n; ++k) {
+            const float v = __ldg(q + gq * n + k);
+            a2 = fmaf(v, v, a2);
+          }
+        q2s[tid] = a2;
+      }
+      cur_qt = qt;
+      cur_chunk = chunk;
+      __syncthreads();
+    }
+    if (ks == 0) {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = ty * kTM + i;
-    if (q0 + r >= qn) break;
-    float* orow = out + static_cast<long long>(q0 + r) * cn;
-    const float a2 = sq2[r];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int cl = tx * 4 + h * (kBN / 2);    // column within the tile
-      float v[4];
+        for (int j = 0; j < kPJ; ++j) acc[i][j] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = fmaxf(a2 - 2.f * acc[i][h * 4 + j] + sx2[cl + j], 0.f);
-      const long long c = c0 + cl;
-      if (vec4_out && c + 4 <= cn) {
-        *reinterpret_cast<float4*>(orow + c) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
+      for (int r = 0; r < kPNorm; ++r) xn[r] = 0.f;
+    }
+    const float* bs = ring + cur.slot * kPC * kCPitch;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < cn) orow[c + j] = v[j];
+    for (int r = 0; r < kPNorm; ++r) {
+      const float4* row = reinterpret_cast<const float4*>(bs + (tid + r * kPThreads) * kCPitch);
+#pragma unroll
+      for (int c = 0; c < kPK / 4; ++c) {
+        const float4 v = row[c];
+        xn[r] = fmaf(v.x, v.x, xn[r]);
+        xn[r] = fmaf(v.y, v.y, xn[r]);
+        xn[r] = fmaf(v.z, v.z, xn[r]);
+        xn[r] = fmaf(v.w, v.w, xn[r]);
+      }
+    }
+    const float* as = qs + (k0 - chunk * kPKC) * kQPitch + qoff;
+#pragma unroll
+    for (int kq = 0; kq < kPK / 4; ++kq) {
+      float4 b[kPJ];
+#pragma unroll
+      for (int j = 0; j < kPJ; ++j)
+        b[j] = *reinterpret_cast<const float4*>(bs + (coff + 8 * j) * kCPitch + kq * 4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* ar = as + (kq * 4 + u) * kQPitch;
+        const float4 a0 = *reinterpret_cast<const float4*>(ar);
+        const float4 a1 = *reinterpret_cast<const float4*>(ar + 4);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int j = 0; j < kPJ; ++j) {
+          const float bj = lane_of(b[j], u);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a[i], bj, acc[i][j]);
+        }
+      }
+    }
+    if (ks == nk - 1) {
+      // epilogue: the ring's next slices are already in flight
+      float* x2s = ring + cur.slot * kPC * kCPitch;
+      __syncthreads();             // every thread is done with this slice
+#pragma unroll
+      for (int r = 0; r < kPNorm; ++r) x2s[tid + r * kPThreads] = xn[r];
+      __syncthreads();
+      const long long qbase = qt * kPQ + qoff;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (qbase + i >= qn) break;
+        const float a2 = q2s[qoff + i];
+        float* orow = out + (qbase + i) * cn + c0;
+#pragma unroll
+        for (int j = 0; j < kPJ; ++j) {
+          const int cl = coff + 8 * j;
+          if (c0 + cl < cn) orow[cl] = fmaxf(a2 - 2.f * acc[i][j] + x2s[cl], 0.f);
+        }
       }
     }
   }
+  cp_async_wait<0>();
 }
 
 // ---- qdots ---------------------------------------------------------------
@@ -280,14 +412,17 @@ CLIMBER_API int climber_pairwise_l2(const float* q, const float* x, float* out,
                                     int qn, long long cn, int n, void* stream) {
   if (qn <= 0 || cn <= 0) return static_cast<int>(cudaSuccess);
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long gx = climber::ceil_div(cn, kBN);
-  const long long gy = climber::ceil_div(qn, kBM);
-  if (gx > 0x7fffffffLL || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec4_in = (n % 4 == 0) && aligned16(q) && aligned16(x);
-  const int vec4_out = (cn % 4 == 0) && aligned16(out);
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  pairwise_l2_kernel<<<grid, kL2Threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, x, out, qn, cn, n, vec4_in, vec4_out);
+  const long long ctiles = climber::ceil_div(cn, kPC);
+  const long long items = climber::ceil_div(qn, kPQ) * ctiles;
+  const bool vec = n % 4 == 0 && aligned16(x);
+  auto kernel = vec ? pairwise_l2_kernel<true> : pairwise_l2_kernel<false>;
+  cudaError_t err = climber::allow_smem(kernel, kPairSmem);
+  unsigned blocks = 0;
+  if (err == cudaSuccess)
+    err = climber::persistent_blocks(kernel, kPThreads, kPairSmem, items, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kPThreads, kPairSmem, static_cast<cudaStream_t>(stream)>>>(
+      q, x, out, qn, cn, n, ctiles, items);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,6 +7,10 @@ Replaces ``repro/kernels/l2.py``:
   ``[Q, C]`` squared ED, ``max(‖q‖² − 2q·x + ‖x‖², 0)`` with fp32
   accumulation — the exact scan behind every ground truth
   (``baselines/dss.py``).  Bound by fp32 operations, 2n FLOPs per output.
+  The kernel is a persistent grid of one block per SM that keeps its 64
+  queries in shared memory and streams 256-candidate tiles through a
+  ``cp.async`` ring into 8 × 8 register tiles; each output sums its dot
+  and both norms in ascending k with fmaf, so its bits depend on n alone.
 * :func:`qdots` (``qdots``): q ``[Q, n]``, rows ``[Q, C, n]`` → ``[Q, C]``,
   each query against its own candidate rows — the dense refine's dot
   product (``ops.batched_query_dots``).  Bound by HBM bytes, 2 FLOPs per

@@ -10,15 +10,18 @@ the ``cap`` slots of partition ``sel_part[q, s]`` at flat index
 Output: the ``k`` best ``(d², gid)`` by ``(d², flat index)``, ``3.4e38``/``-1``
 where fewer than ``k`` candidates exist.
 
-The kernel is ``csrc/refine_topk.cu``: split-range partial k-best blocks that
-skip pad entries without touching the store, then a per-query merge by the
-same exact key (see the source for the design).  It is bound by HBM bytes,
-2n FLOPs per 4n + 12 bytes of each kept record.  The plain version gathers
-the ``[Q, MP, cap, n]`` candidate rows, so it only fits small plans.
+The kernel is ``csrc/refine_topk.cu``: a plan kernel that gives each query
+blocks in proportion to its live slots, partial k-best blocks that scan tags
+first and then stream the kept rows with many loads in flight, and a
+per-query merge of the sorted partial lists by merge path, all by the same
+exact key (see the source for the design).  It is bound by HBM bytes: each
+distinct kept record's row and norm once, and 8 bytes of tags per live slot.
+The plain version gathers the ``[Q, MP, cap, n]`` candidate rows, so it only
+fits small plans.
 """
 from __future__ import annotations
 
-import math
+import functools
 from typing import Optional
 
 import torch
@@ -69,14 +72,37 @@ def masked_distances(data, norms, rec_dfs, rec_gid, queries,
         dots = dot_fn(q, rows)
     q2 = (q * q).sum(dim=-1)
     d2 = torch.clamp(q2[:, None, None] - 2.0 * dots + norms[pid], min=0.0)
-    rdfs, rgid = rec_dfs[pid], rec_gid[pid]
-    in_node = (rdfs >= sel_lo[:, :, None]) & (rdfs < sel_hi[:, :, None])
-    incl = (rgid >= 0) & in_node & (sel_part >= 0)[:, :, None]
-    incl = dedupe_segments(sel_part, incl)
+    incl = kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi)
+    rgid = rec_gid[pid]
     qn = queries.shape[0]
     d2 = torch.where(incl, d2, torch.full_like(d2, PAD_D2)).reshape(qn, -1)
     gid = torch.where(incl, rgid, torch.full_like(rgid, -1)).reshape(qn, -1)
     return d2, gid
+
+
+def kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi) -> torch.Tensor:
+    """``[Q, MP, cap]`` bool over a partition-sorted plan: the slots the
+    fused refine keeps (gid ≥ 0, DFS tag in ``[sel_lo, sel_hi)``, entry not
+    a pad, and not covered by an earlier entry of the same partition)."""
+    pid = torch.clamp(sel_part, min=0).long()
+    rdfs, rgid = rec_dfs[pid], rec_gid[pid]
+    in_node = (rdfs >= sel_lo[:, :, None]) & (rdfs < sel_hi[:, :, None])
+    incl = (rgid >= 0) & in_node & (sel_part >= 0)[:, :, None]
+    return dedupe_segments(sel_part, incl)
+
+
+def refine_work(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi) -> dict:
+    """What the fused refine must do on a partition-sorted plan, counted
+    from its tags alone: ``kept_pairs`` (query, record) distances,
+    ``unique_kept_records`` distinct records behind them (the rows a
+    kernel must read at least once), and ``live_slots`` (tags it tests)."""
+    kept = kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi)
+    cap = kept.shape[-1]
+    slot = (torch.clamp(sel_part, min=0).long()[:, :, None] * cap
+            + torch.arange(cap, device=kept.device))
+    return {"kept_pairs": int(kept.sum()),
+            "unique_kept_records": int(torch.unique(slot[kept]).numel()),
+            "live_slots": int((sel_part >= 0).sum()) * cap}
 
 
 def topk_flat(d2: torch.Tensor, gid: torch.Tensor, k: int):
@@ -101,12 +127,13 @@ def refine_topk_plain(data, norms, rec_dfs, rec_gid, queries,
     return topk_flat(d2, gid, k)
 
 
-def pick_splits(q: int, k: int, device: torch.device) -> int:
-    """Blocks per query: about four blocks per SM across the batch, within
-    the merge kernel's shared memory."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+@functools.lru_cache(maxsize=None)
+def pick_splits(k: int) -> int:
+    """The most blocks a query may get: ``MAX_SPLITS``, or fewer where the
+    merge kernel's shared memory holds fewer lists of k.  The kernel gives
+    each query a share of them in proportion to its live slots."""
     lib = _lib.library()
-    s = max(1, min(MAX_SPLITS, math.ceil(4 * sms / max(q, 1))))
+    s = MAX_SPLITS
     while s > 1 and lib.climber_refine_merge_smem(s, k) > _lib.SMEM_LIMIT:
         s -= 1
     return s
@@ -123,8 +150,8 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
       queries: ``[Q, n]`` f32.
       sel_part / sel_lo / sel_hi: ``[Q, MP]`` int32, sorted by partition.
       k: answers per query.
-      splits: blocks per query (None: :func:`pick_splits`); any value
-        gives the same answer.
+      splits: the most blocks a query may get (None: :func:`pick_splits`);
+        any value gives the same answer.
 
     Returns:
       (d2, gid): ``[Q, k]`` ascending squared ED (``PAD_D2`` past the
@@ -159,11 +186,13 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
     if lib.climber_refine_partial_smem(mp, n, k) > _lib.SMEM_LIMIT:
         raise ValueError(f"refine kernel: MP={mp}, n={n}, k={k} exceed the "
                          f"block's shared memory")
-    s = splits or pick_splits(qn, k, dev)
+    s = splits or pick_splits(k)
     if lib.climber_refine_merge_smem(s, k) > _lib.SMEM_LIMIT:
         raise ValueError(f"refine kernel: {s} splits x k={k} exceed the merge "
                          f"block's shared memory")
-    partial = torch.empty((qn, s, k), dtype=torch.int64, device=dev)
+    # the partial lists [Q, splits, k], then a plan summary and a work
+    # counter per query
+    partial = torch.empty(qn * (s * k + 2), dtype=torch.int64, device=dev)
     d2 = torch.empty((qn, k), dtype=torch.float32, device=dev)
     gid = torch.empty((qn, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):

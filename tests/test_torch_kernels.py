@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _lib, ops, ref  # noqa: E402
 from repro_torch.kernels.paa_kernel import paa_plain  # noqa: E402
 from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain  # noqa: E402
-from repro_torch.kernels.refine_topk import PAD_D2, refine_topk, refine_topk_plain  # noqa: E402
+from repro_torch.kernels.refine_topk import (PAD_D2, masked_distances, refine_topk,  # noqa: E402
+                                             refine_topk_plain, refine_work)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -342,3 +343,100 @@ def test_cuda_refine_matches_plain(cuda, name):
     d_p, g_p = refine_topk_plain(*args, k)
     assert_topk_match(d_k.cpu().numpy(), g_k.cpu().numpy(), d_p.cpu().numpy(),
                       g_p.cpu().numpy(), q, store[1])
+
+
+# ---------------------------------------------------------------------------
+# the refine's work count (CPU) and the redesigned kernel at size (card)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_refine_work_counts_the_plain_versions_kept_slots(name):
+    """``refine_work`` (the smoke's bound and the variants tool's counts)
+    counts exactly the (query, record) pairs the plain refine keeps, and
+    the distinct records behind them."""
+    store, q, plan, k = case_inputs(name)
+    t = [torch.as_tensor(a) for a in (*store, q, *plan)]
+    work = refine_work(t[2], t[3], *t[5:])
+    d2, _ = masked_distances(*t)
+    kept = (d2 < PAD_D2).reshape(q.shape[0], plan[0].shape[1], -1).numpy()
+    cap = store[1].shape[1]
+    slots = {(int(max(plan[0][i, s], 0)) * cap + c)
+             for i, s, c in zip(*np.nonzero(kept))}
+    assert work["kept_pairs"] == int(kept.sum())
+    assert work["unique_kept_records"] == len(slots)
+    assert work["live_slots"] == int((plan[0] >= 0).sum()) * cap
+
+
+def assert_refine_rule(d_k, g_k, d_p, g_p, q, norms):
+    """The smoke's refine rule: |Δd²| ≤ 1e-5·(‖q‖² + max ‖x‖²) position by
+    position, and answer sets that differ only at the k-th distance."""
+    tol = 1e-5 * ((q.double() ** 2).sum(-1, keepdim=True) + float(norms.max()))
+    assert bool(((d_k.double() - d_p.double()).abs() <= tol).all())
+    for i in (g_k != g_p).any(1).nonzero()[:, 0].tolist():
+        extra = ~torch.isin(g_k[i], g_p[i])
+        assert bool(((d_k[i][extra].double() - d_p[i, -1].double()).abs() <= tol[i]).all())
+
+
+def big_refine_inputs(seed, q=64, p=12, cap=4100, n=256, mp=8, ndfs=4, pad_frac=0.2):
+    """A store with cap > 4,000 and a batch whose plans share partitions."""
+    store = make_store(seed, p=p, cap=cap, n=n, ndfs=ndfs)
+    sp, lo, hi = make_plan(seed + 1, q=q, mp=mp, p=p, ndfs=ndfs, pad_frac=pad_frac)
+    qs = np.random.default_rng(seed + 2).standard_normal((q, n)).astype(np.float32)
+    return store, qs, (sp, lo, hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 30, 384])
+def test_cuda_refine_k500_shared_partitions_any_split(cuda, n):
+    """k = 500 over cap 4,100, 64 queries sharing 12 partitions, one all-pad
+    row, rows of 256 floats (the configuration's width), 30 (scalar loads)
+    and 384 (float4 loads in runtime loops): the kernel keeps the rule
+    against the plain version, and one block per query, the most allowed
+    and the default give the same bits."""
+    store, q, (sp, lo, hi) = big_refine_inputs(3, n=n)
+    sp[5] = -1                                          # an all-pad row
+    args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
+    lib = _lib.library()
+    most = next(s for s in range(64, 0, -1)
+                if lib.climber_refine_merge_smem(s, 500) <= _lib.SMEM_LIMIT)
+    n0 = ops.launch_counts()["refine_topk"]
+    got = {s: refine_topk(*args, 500, splits=s) for s in (None, 1, most)}
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["refine_topk"] == n0 + 3
+    for s in (1, most):
+        assert torch.equal(got[None][0], got[s][0]) and torch.equal(got[None][1], got[s][1])
+    d_k, g_k = got[None]
+    assert bool((g_k[5] == -1).all()) and bool((d_k[5] >= PAD_D2).all())
+    d_p, g_p = refine_topk_plain(*args, 500)
+    assert_refine_rule(d_k, g_k, d_p, g_p, args[4], args[1])
+
+
+@pytest.mark.cuda
+def test_cuda_refine_pool_beyond_every_block_scratch(cuda):
+    """One block per query over 10 fully kept entries of cap 4,100: 41,000
+    kept rows, past the block's list of kept indices and its key buffer, so
+    the block merges many times."""
+    store = make_store(4, p=10, cap=4100, n=64, ndfs=1)
+    q = np.random.default_rng(5).standard_normal((3, 64)).astype(np.float32)
+    sp = np.tile(np.arange(10, dtype=np.int32), (3, 1))
+    lo, hi = np.zeros_like(sp), np.ones_like(sp)
+    args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
+    d1, g1 = refine_topk(*args, 500, splits=1)
+    d_all, g_all = refine_topk(*args, 500)
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d_all) and torch.equal(g1, g_all)
+    assert bool((g1 >= 0).all())
+    d_p, g_p = refine_topk_plain(*args, 500)
+    assert_refine_rule(d1, g1, d_p, g_p, args[4], args[1])
+
+
+@pytest.mark.cuda
+def test_cuda_refine_query_alone_equals_its_row_in_a_shared_batch(cuda):
+    """A query's answer does not depend on the batch it rides in, nor on the
+    other queries that share its partitions: bit-equal alone and in 64."""
+    store, q, (sp, lo, hi) = big_refine_inputs(6, pad_frac=0.0)
+    args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
+    d64, g64 = refine_topk(*args, 500)
+    for i in (0, 17, 63):
+        one = [a[i:i + 1].contiguous() for a in args[4:]]
+        d1, g1 = refine_topk(*args[:4], *one, 500)
+        assert torch.equal(d1[0], d64[i]) and torch.equal(g1[0], g64[i])

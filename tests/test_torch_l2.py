@@ -226,3 +226,42 @@ def test_cuda_qdots_unaligned_rows_sum_in_the_same_order(cuda, n):
     assert torch.equal(got, ops.qdots(a, off.clone()))
     assert within_cancellation_bound(got, qdots_plain(a, off), a,
                                      (off.double() ** 2).sum(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,c,n", [(1, 1000, 256), (63, 257, 256), (65, 4099, 30),
+                                   (130, 700, 384), (64, 100, 384), (130, 255, 30),
+                                   (2, 3, 256)])
+def test_cuda_pairwise_l2_query_tiles_candidate_tiles_and_widths(cuda, q, c, n):
+    """Q around the 64-query tile (1, 63, 65, 130), C not a multiple of the
+    256-row tile and below one tile, n = 30 (no float4 rows), 256, and 384
+    (two resident 256-deep query chunks)."""
+    a = torch.as_tensor(rand(q + n, q, n)).to(cuda)
+    b = torch.as_tensor(rand(c + n, c, n)).to(cuda)
+    got = ops.pairwise_l2(a, b)
+    torch.cuda.synchronize()
+    assert got.shape == (q, c) and bool((got >= 0).all())
+    assert within_cancellation_bound(got, pairwise_l2_plain(a, b), a,
+                                     (b.double() ** 2).sum(-1)[None, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 30])
+def test_cuda_pairwise_l2_bits_depend_on_n_alone(cuda, n):
+    """out[i, j] is summed in one order whatever the batch: one query's row
+    alone equals its row in a batch of 64, a chunk at an odd row offset (and,
+    at n = 256, a copy 4 bytes off a 16-byte boundary, which takes 4-byte
+    copies) equals those columns of the whole scan."""
+    x = torch.as_tensor(rand(11, 3001, n)).to(cuda)
+    qs = torch.as_tensor(rand(12, 64, n)).to(cuda)
+    whole = ops.pairwise_l2(qs, x)
+    for i in (0, 31, 63):
+        assert torch.equal(ops.pairwise_l2(qs[i:i + 1].contiguous(), x)[0], whole[i])
+    assert torch.equal(ops.pairwise_l2(qs, x[777:2901]), whole[:, 777:2901])
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    off = flat[1:].view_as(x)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 4
+    assert torch.equal(ops.pairwise_l2(qs, off), whole)
+    assert within_cancellation_bound(whole, pairwise_l2_plain(qs, x), qs,
+                                     (x.double() ** 2).sum(-1)[None, :])

@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Design variants and timing probes of the ``refine_topk`` and
+``pairwise_l2`` CUDA kernels, timed on one card.
+
+Builds the kernel library from a source directory (``--csrc``, the
+package's ``src/repro_torch/csrc`` by default) as it is, and in variants
+made by editing the text of ``refine_topk.cu`` or ``l2.cu`` (one ``nvcc``
+per variant, all started together).  ``--parent-csrc DIR`` also builds an
+older tree's sources unedited (``parent``), so that two designs are timed
+in turns in one call.  An edit whose anchor text is not in the source is
+skipped and reported, so the one list serves several designs.
+
+Inputs are the smoke's (``chip_smoke.py``): a 2^22-series random walk
+(``--seed``), its CLIMBER index at ``ClimberConfig()``, 256 queries drawn
+from it.  ``refine_topk`` runs on three partition-sorted plans: adaptive on
+queries 0-63 (the smoke's timed batch), adaptive on queries 64-127 (the
+smoke's traced tick) and ``od_smallest`` on queries 0-63; each plan's
+``kept_pairs`` / ``unique_kept_records`` and byte bound come with it.
+``pairwise_l2`` runs on 64 queries x the first 2^20 series (one Dss chunk).
+
+Each variant that computes the function is held against the plain version
+(the smoke's rules: ``|Δd²| <= 1e-5·(‖q‖²+‖x‖²)``, refine answers that
+differ only at k-th-distance near-ties) and against the unedited build bit
+for bit.  A probe (a name in ``PROBES``) leaves work out, so its output is
+not checked: it is timed only.  Times are CUDA-event means over 20 calls,
+and the profiler's device time per kernel name, in three interleaved
+rounds.
+
+Usage (needs a CUDA card and nvcc):
+``python3 tools/kernel_variants.py [--kernel refine_topk|pairwise_l2|all]
+[--csrc DIR] [--parent-csrc DIR] [--out chiprun_out/kernel_variants.json]``
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.kernels import _lib  # noqa: E402
+
+# name -> (source file, [(anchor, replacement), ...]).  Anchors of the PR 12
+# design and of the redesign may both be listed: what is absent is skipped.
+EDITS = {
+    "refine_topk": {
+        # the PR 12 design's phases, one left out at a time
+        "tags_only": ("refine_topk.cu", [
+            ("const int nev = s_nev;", "const int nev = 0 * s_nev;")]),
+        "rows_no_insert": ("refine_topk.cu", [
+            ("if (key < s_thresh) keys[k + atomicAdd(&s_nbuf, 1)] = key;",
+             "if (key == 0x5a5a5a5a5a5aull) keys[k] = key;")]),
+        "no_final_sort": ("refine_topk.cu", [
+            ("    for (int i = k + s_nbuf + tid; i < L; i += kThreads) keys[i] = kEmpty;\n"
+             "    bitonic_sort(keys, L);\n  }\n  u64* out",
+             "  }\n  u64* out")]),
+        "merge_only": ("refine_topk.cu", [
+            ("    int vec4) {\n  const int q = blockIdx.y;",
+             "    int vec4) {\n  if (mp > 0) return;\n  const int q = blockIdx.y;")]),
+        # the redesign: the block set-up alone, and design choices
+        "setup_only": ("refine_topk.cu", [
+            ("  const int end = mp * cap;", "  const int end = first_live * cap;")]),
+        "rows4": ("refine_topk.cu", [
+            ("constexpr int R = NV == 0 ? 4 : 8;", "constexpr int R = NV == 0 ? 4 : 4;")]),
+        "waves1": ("refine_topk.cu", [
+            ("constexpr int kWaves = 4;", "constexpr int kWaves = 1;")]),
+        "waves2": ("refine_topk.cu", [
+            ("constexpr int kWaves = 4;", "constexpr int kWaves = 2;")]),
+        "waves8": ("refine_topk.cu", [
+            ("constexpr int kWaves = 4;", "constexpr int kWaves = 8;")]),
+        # 1,024-slot chunks: four tag pairs in flight per thread
+        "scan4": ("refine_topk.cu", [
+            ("constexpr int kScanPer = 8;", "constexpr int kScanPer = 4;")]),
+        "ldg": ("refine_topk.cu", [
+            ("? __ldcs(reinterpret_cast<const float4*>(data + slot[r] * n) + j)",
+             "? __ldg(reinterpret_cast<const float4*>(data + slot[r] * n) + j)")]),
+        # a probe: every live slot with a record kept (no DFS range, no
+        # dedupe), so the row pass streams whole partitions
+        "keep_all": ("refine_topk.cu", [
+            ("      bool keep = gid[u] >= 0;\n      if (keep) {",
+             "      bool keep = gid[u] >= 0;\n      if (false) {")]),
+    },
+    "pairwise_l2": {
+        # the first redesign's ring: 32-deep slices, three of them
+        "k32_s3": ("l2.cu", [
+            ("constexpr int kPK = 64;", "constexpr int kPK = 32;"),
+            ("constexpr int kPStages = 2;", "constexpr int kPStages = 3;")]),
+        # deeper rings of shallower slices: more loads in flight
+        "k32_s4": ("l2.cu", [
+            ("constexpr int kPK = 64;", "constexpr int kPK = 32;"),
+            ("constexpr int kPStages = 2;", "constexpr int kPStages = 4;")]),
+        "k16_s6": ("l2.cu", [
+            ("constexpr int kPK = 64;", "constexpr int kPK = 16;"),
+            ("constexpr int kPStages = 2;", "constexpr int kPStages = 6;")]),
+        # 512 threads and 512-row tiles, 32-deep slices (16 warps per SM)
+        "warps16_k32": ("l2.cu", [
+            ("constexpr int kPWarpsC = 4;", "constexpr int kPWarpsC = 8;"),
+            ("constexpr int kPK = 64;", "constexpr int kPK = 32;")]),
+        # two 256-thread blocks per SM: 16-deep slices, a 2-slice ring
+        "blocks2_k16": ("l2.cu", [
+            ("constexpr int kPK = 64;", "constexpr int kPK = 16;"),
+            ("constexpr int kPMinBlocks = 1;", "constexpr int kPMinBlocks = 2;")]),
+        # an 8 x 16 register tile (512-row tiles), 32-deep slices
+        "j16_k32": ("l2.cu", [
+            ("constexpr int kPJ = 8;", "constexpr int kPJ = 16;"),
+            ("constexpr int kPK = 64;", "constexpr int kPK = 32;")]),
+        # 384 threads, 384-row tiles, 32-deep slices (12 warps per SM)
+        "warps12_k32": ("l2.cu", [
+            ("constexpr int kPWarpsC = 4;", "constexpr int kPWarpsC = 6;"),
+            ("constexpr int kPK = 64;", "constexpr int kPK = 32;")]),
+        # FMAs ordered query-major (each a[i] against the kPJ candidates)
+        "ij_order": ("l2.cu", [
+            ("""#pragma unroll
+        for (int j = 0; j < kPJ; ++j) {
+          const float bj = lane_of(b[j], u);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a[i], bj, acc[i][j]);
+        }""", """#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < kPJ; ++j) acc[i][j] = fmaf(a[i], lane_of(b[j], u), acc[i][j]);""")]),
+        "unroll4": ("l2.cu", [
+            ("#pragma unroll\n    for (int kq = 0; kq < kPK / 4; ++kq) {",
+             "#pragma unroll 4\n    for (int kq = 0; kq < kPK / 4; ++kq) {")]),
+        # probes: no barrier before a slice is read (a race, timing only);
+        # no copies after the first slices (stale data); no |x|^2 pass;
+        # almost no output stores (the FMAs stay)
+        "no_barrier": ("l2.cu", [
+            ("    cp_async_wait<kPStages - 2>();\n    __syncthreads();",
+             "    cp_async_wait<kPStages - 2>();")]),
+        "no_loads": ("l2.cu", [
+            ("    if (t + kPStages - 1 < steps)\n      load_slice<VEC>",
+             "    if (t + kPStages - 1 < 0)\n      load_slice<VEC>")]),
+        "no_norm": ("l2.cu", [
+            ("    for (int r = 0; r < kPNorm; ++r) {\n      const float4* row",
+             "    for (int r = 0; r < 0; ++r) {\n      const float4* row")]),
+        "few_stores": ("l2.cu", [
+            ("if (c0 + cl < cn) orow[cl] =", "if (c0 + cl < cn && acc[i][j] == 1234.5f) orow[cl] =")]),
+    },
+}
+PROBES = {"tags_only", "rows_no_insert", "no_final_sort", "merge_only", "setup_only",
+          "keep_all", "no_norm", "few_stores", "no_barrier", "no_loads"}
+CFG_SEED_QUERIES = 256
+
+
+def smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def variant_sources(kernel: str, csrc: Path):
+    """name -> {file: text} of the variants whose anchors all exist."""
+    out, skipped = {}, []
+    for name, (fname, edits) in EDITS[kernel].items():
+        text = (csrc / fname).read_text()
+        if not all(text.count(a) == 1 for a, _ in edits):
+            skipped.append(name)
+            continue
+        for a, b in edits:
+            text = text.replace(a, b)
+        out[name] = {fname: text}
+    return out, skipped
+
+
+def build_all(builds: dict, root: Path) -> dict:
+    """builds: name -> (csrc dir, {file: text} overrides).  One nvcc per
+    build, all started together; returns name -> (CDLL, ptxas log)."""
+    nvcc = _lib.find_nvcc()
+    procs = {}
+    for name, (csrc, override) in builds.items():
+        d = root / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for p in sorted(csrc.glob("*.cu*")):
+            (d / p.name).write_text(override.get(p.name, p.read_text()))
+        cmd = [nvcc, *_lib.NVCC_FLAGS, "-shared", "-I", str(d),
+               *sorted(str(p) for p in d.glob("*.cu")), "-o", str(d / "lib.so")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    built = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(root / name / "lib.so"))
+        # the PR 12 design takes a fixed number of blocks per query, the
+        # redesign the most a query may get
+        lib.balanced = "refine_plan_kernel" in (root / name / "refine_topk.cu").read_text()
+        for fn_name, (restype, argtypes) in _lib._SIGNATURES.items():
+            if hasattr(lib, fn_name):
+                fn = getattr(lib, fn_name)
+                fn.restype, fn.argtypes = restype, argtypes
+        built[name] = (lib, log)
+    return built
+
+
+def ptxas_of(log: str, entry: str) -> dict:
+    """Registers and spills of each entry whose mangled name holds ``entry``."""
+    info, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            name = ln.split("'")[1]
+            cur = name if entry in name else None
+            if cur:
+                info[cur] = {}
+        elif cur and "bytes spill stores" in ln:
+            f = [int(t) for t in ln.replace(",", " ").split() if t.isdigit()]
+            info[cur].update(spill_stores=f[1], spill_loads=f[2])
+        elif cur and "Used" in ln and "registers" in ln:
+            info[cur]["registers"] = int(ln.split("Used")[1].split()[0])
+    return info
+
+
+def timed(fn, names, iters=20):
+    """(event ms per call, {kernel-name fragment: profiler device ms per call})."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    dev = {}
+    for e in pr.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for frag in names:
+                if frag in e.name:
+                    dev[frag] = dev.get(frag, 0.0) + e.time_range.elapsed_us() / 1e3 / 5
+    return ms, dev
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("refine_topk", "pairwise_l2", "all"),
+                    default="all")
+    ap.add_argument("--csrc", default=str(_lib.CSRC))
+    ap.add_argument("--parent-csrc", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--num", type=int, default=1 << 22)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "kernel_variants.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA card", file=sys.stderr)
+        return 1
+
+    from repro_torch.core.index import build_index
+    from repro_torch.core.query import plan as plan_queries
+    from repro_torch.data import make_dataset, make_queries
+    from repro_torch.kernels.l2 import pairwise_l2_plain
+    from repro_torch.kernels.refine_topk import (masked_distances, pick_splits,
+                                                 refine_work, topk_flat)
+    from repro_torch.utils.config import ClimberConfig
+
+    kernels = ("refine_topk", "pairwise_l2") if args.kernel == "all" else (args.kernel,)
+    csrc = Path(args.csrc).resolve()
+    builds = {"kernel": (csrc, {})}
+    if args.parent_csrc:
+        builds["parent"] = (Path(args.parent_csrc).resolve(), {})
+    skipped = {}
+    for kern in kernels:
+        srcs, skipped[kern] = variant_sources(kern, csrc)
+        builds.update({f"{kern}:{v}": (csrc, o) for v, o in srcs.items()})
+    built = build_all(builds, ROOT / "build" / "kernel_variants")
+
+    dev = torch.device("cuda", 0)
+    cfg = ClimberConfig()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    data = make_dataset("randomwalk", args.num, cfg.series_len, generator=gen)
+    stream = _lib.stream(dev)
+    report = {"card": smi(), "torch": torch.__version__, "cuda": torch.version.cuda,
+              "csrc": str(csrc), "parent_csrc": args.parent_csrc,
+              "skipped_edits": skipped, "ptxas": {}}
+    n = cfg.series_len
+    for name, (_, log) in built.items():
+        report["ptxas"][name] = {**ptxas_of(log, "refine"), **ptxas_of(log, "pairwise_l2")}
+
+    def rounds(cases, names, inputs_of, run, frags):
+        """Time every (case, build) in interleaved rounds."""
+        out = {c: {b: {"ms": [], "device_ms": []} for b in names} for c in cases}
+        for _ in range(args.rounds):
+            for c in cases:
+                for b in names:
+                    ms, d = timed(lambda: run(built[b][0], *inputs_of(c)), frags)
+                    out[c][b]["ms"].append(ms)
+                    out[c][b]["device_ms"].append(d)
+        return out
+
+    if "refine_topk" in kernels:
+        index = build_index(data, cfg, device=dev, generator=gen)
+        store = index.store
+        queries = make_queries(data, CFG_SEED_QUERIES, generator=gen)
+        k, cap = cfg.k, store.capacity
+        plans = {}
+        for label, qs, variant in (("adaptive_q0-63", queries[:64], "adaptive"),
+                                   ("adaptive_q64-127", queries[64:128], "adaptive"),
+                                   ("od_smallest_q0-63", queries[:64], "od_smallest")):
+            qs = qs.contiguous()
+            p4r, _ = index.featurize(qs)
+            qp = plan_queries(index, p4r, variant=variant)
+            order = torch.argsort(qp.sel_part, dim=-1, stable=True)
+            sp, lo, hi = (torch.gather(t, 1, order).to(torch.int32).contiguous()
+                          for t in (qp.sel_part, qp.sel_lo, qp.sel_hi))
+            live_w = int((sp >= 0).sum(1).max())
+            work = refine_work(store.rec_dfs, store.rec_gid, sp[:, -live_w:],
+                               lo[:, -live_w:], hi[:, -live_w:])
+            nbytes = (work["unique_kept_records"] * (4 * n + 4) + work["live_slots"] * 8
+                      + 64 * n * 4 + 3 * 64 * sp.shape[1] * 4 + 64 * k * 8)
+            flops = work["kept_pairs"] * (2 * n + 3)
+            bound = max(nbytes / 3.35e12, flops / 67e12) * 1e3
+            plans[label] = (qs, sp, lo, hi, live_w,
+                            dict(work, mp=sp.shape[1], live_width=live_w, bound_ms=bound,
+                                 splits=pick_splits(k)))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+        def splits_of(lib, qn):
+            s = 64 if lib.balanced else max(1, min(64, -(-4 * sms // qn)))
+            while s > 1 and lib.climber_refine_merge_smem(s, k) > _lib.SMEM_LIMIT:
+                s -= 1
+            return s
+
+        def run_refine(lib, qs, sp, lo, hi, *_):
+            s = splits_of(lib, qs.shape[0])
+            partial = torch.empty(qs.shape[0] * (s * k + 2), dtype=torch.int64, device=dev)
+            d2 = torch.empty((qs.shape[0], k), dtype=torch.float32, device=dev)
+            gid = torch.empty((qs.shape[0], k), dtype=torch.int32, device=dev)
+            _lib.check(lib.climber_refine_topk(
+                store.data.data_ptr(), store.norms.data_ptr(), store.rec_dfs.data_ptr(),
+                store.rec_gid.data_ptr(), qs.data_ptr(), sp.data_ptr(), lo.data_ptr(),
+                hi.data_ptr(), partial.data_ptr(), d2.data_ptr(), gid.data_ptr(),
+                qs.shape[0], sp.shape[1], cap, n, k, s, stream), "refine variant")
+            return d2, gid
+
+        names = [b for b in built if b in ("kernel", "parent") or b.startswith("refine_topk:")]
+        checks = {}
+        for label, (qs, sp, lo, hi, live_w, _) in plans.items():
+            qc = max(1, int(2e9 // (live_w * cap * n * 4)))
+            outs = [topk_flat(*masked_distances(
+                store.data, store.norms, store.rec_dfs, store.rec_gid, qs[a:a + qc],
+                sp[a:a + qc, -live_w:], lo[a:a + qc, -live_w:], hi[a:a + qc, -live_w:]), k)
+                for a in range(0, qs.shape[0], qc)]
+            d2_p, g_p = torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+            tol = 1e-5 * ((qs * qs).sum(-1, keepdim=True) + float(store.norms.max()))
+            ref = run_refine(built["kernel"][0], qs, sp, lo, hi)
+            checks[label] = {}
+            for b in names:
+                if b.split(":")[-1] in PROBES:
+                    continue
+                d2, g = run_refine(built[b][0], qs, sp, lo, hi)
+                err = (d2 - d2_p).abs()
+                far = 0
+                for i in (g != g_p).any(1).nonzero()[:, 0].tolist():
+                    extra = ~torch.isin(g[i], g_p[i])
+                    far += int(((d2[i][extra] - d2_p[i, -1]).abs() > tol[i]).any())
+                checks[label][b] = {"max_abs_err": float(err.max()),
+                                    "within_rule": bool((err <= tol).all()) and far == 0,
+                                    "equal_to_kernel": bool(torch.equal(d2, ref[0])
+                                                            and torch.equal(g, ref[1]))}
+        times = rounds(list(plans), names, lambda c: plans[c][:5], run_refine,
+                       ("refine_partial", "refine_merge", "refine"))
+        report["refine_topk"] = {"plans": {c: plans[c][5] for c in plans},
+                                 "checks": checks, "times": times}
+        del index, store
+
+    if "pairwise_l2" in kernels:
+        g2 = torch.Generator(device=dev).manual_seed(args.seed + 100)
+        q64 = data[torch.randperm(data.shape[0], generator=g2, device=dev)[:64]].contiguous()
+        x_c = data[: 1 << 20]
+
+        def run_l2(lib, q, x):
+            out = torch.empty((q.shape[0], x.shape[0]), dtype=torch.float32, device=dev)
+            _lib.check(lib.climber_pairwise_l2(q.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                               q.shape[0], x.shape[0], n, stream),
+                       "pairwise_l2 variant")
+            return out
+
+        names = [b for b in built if b in ("kernel", "parent") or b.startswith("pairwise_l2:")]
+        want = pairwise_l2_plain(q64, x_c)
+        tol = 1e-5 * ((q64 * q64).sum(-1, keepdim=True) + (x_c * x_c).sum(-1)[None, :])
+        ref = run_l2(built["kernel"][0], q64, x_c)
+        checks = {}
+        for b in names:
+            if b.split(":")[-1] in PROBES:
+                continue
+            got = run_l2(built[b][0], q64, x_c)
+            err = (got - want).abs()
+            checks[b] = {"max_abs_err": float(err.max()),
+                         "within_rule": bool((err <= tol).all()),
+                         "equal_to_kernel": bool(torch.equal(got, ref))}
+        del want, tol, ref
+        times = rounds(["64x2^20"], names, lambda c: (q64, x_c), run_l2, ("pairwise_l2",))
+        report["pairwise_l2"] = {"shape": "[64,256] x [1048576,256]",
+                                 "bound_ms": 2 * 64 * (1 << 20) * n / 67e12 * 1e3,
+                                 "checks": checks, "times": times}
+
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(report, indent=1))
+    for kern in kernels:
+        if kern not in report:
+            continue
+        r = report[kern]
+        print(f"== {kern}: skipped edits {skipped[kern]}")
+        for c, per in r["times"].items():
+            print(f"  {c}: {json.dumps(r.get('plans', {}).get(c, {}))}")
+            for b, t in per.items():
+                chk = (r["checks"].get(c, r["checks"]) or {}).get(b, "probe")
+                print(f"    {b:32s} ms {['%.4f' % v for v in t['ms']]} "
+                      f"device {[{a: round(x, 4) for a, x in d.items()} for d in t['device_ms']]} "
+                      f"{chk}")
+    for name, p in report["ptxas"].items():
+        print(f"ptxas {name}: {p}")
+    print(report["card"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
