@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's two paths once on one NVIDIA card, at the paper's
+Drives the port's three paths once on one NVIDIA card, at the paper's
 configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10, c=3000,
 K=500), with every kernel's launch count zeroed just before each path and
 read just after it:
@@ -20,8 +20,24 @@ read just after it:
    its fused answer.  Every method runs over the whole dataset.  Last, a
    seismic tenant corpus (4 shards, affinity 0.6) with perturbed queries,
    2K true neighbours and the hard/easy split.
+3. **fleet**: a seismic tenant corpus of 4 × ``--fleet-shard`` series
+   (affinity 0.6), one ``IndexFleet.add_shard`` per tenant; 256 perturbed
+   queries through ``FleetEngine`` (batch 64, k=500, signature routing,
+   fan-out 2, adaptive) with ``placement="host"`` and ``"mesh"`` (the
+   stacked one-card pass), which must agree bit for bit, scored against
+   ``scan_exact``; one exhaustive fan-out batch against ``scan_exact`` and
+   ``scan_exact`` against Dss; ingest under load (64 insert batches of
+   1,024 rows into a WAL-durable fleet under ``build/``, each followed by a
+   serving tick that runs maintenance, so the delta seals twice in the
+   background; acknowledged rows must read back at once), a 4-batch WAL
+   tail, ``save()`` and ``IndexFleet.open()`` (answers bit-equal), and a
+   ``maintenance`` merge of the two sealed delta shards (exhaustive answers
+   unchanged).  After its launch counts are read, ``refine_topk`` is held
+   against its plain version at two of the fleet's shapes: one shard's
+   stacked-pass plan and ``scan_exact``'s exhaustive refine over the union
+   store.
 
-Then, off both paths, it holds each CUDA kernel against its plain PyTorch
+Then, off the paths, it holds each CUDA kernel against its plain PyTorch
 version on the same inputs at the paths' shapes, times both with CUDA
 events (and the one PyTorch call that computes the same function, where
 there is one; ``pivot_rank`` also at one tick's 64 query rows, with the
@@ -39,7 +55,8 @@ line, the card's ``nvidia-smi`` name and power limit, and the last line
 JSON report there.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--num 4194304] [--queries 256]
-[--other-num 1048576] [--tenant-shard 262144] [--report PATH]``
+[--other-num 1048576] [--tenant-shard 262144] [--fleet-shard 1048576]
+[--report PATH]``
 from the repository root (it puts ``src/`` on ``sys.path`` itself).  It
 needs a CUDA card and ``nvcc``; without a card it exits non-zero before
 printing any result.
@@ -207,6 +224,306 @@ def evaluate_dataset(name, data, queries, index, gt_cache, meta, cfg, gen):
     return rows_out, (d_gt, i_gt)
 
 
+FLEET_KERNELS = ("paa", "pivot_rank", "refine_topk")
+FLEET_TENANTS = 4
+INSERT_BATCHES, INSERT_ROWS, TAIL_BATCHES = 64, 1024, 4
+
+
+def plain_refine_chunked(store, qs, sp, lo, hi, k, budget=4e9):
+    """``refine_topk``'s plain version over a partition-sorted plan, in
+    query chunks and, where the plan names each partition once (an
+    exhaustive plan), in chunks of partition columns, each gathering at
+    most ``budget`` bytes of rows; the chunks' top-k lists are merged by
+    (d², column), the order of one plain pass."""
+    import torch
+    from repro_torch.kernels.refine_topk import masked_distances, topk_flat
+    live_w = int((sp >= 0).sum(1).max())
+    sp, lo, hi = (t[:, t.shape[1] - live_w:] for t in (sp, lo, hi))  # pads first
+    per = store.capacity * store.data.shape[-1] * 4
+    cols = max(1, min(live_w, int(budget // per)))
+    if cols < live_w and bool(((sp[:, 1:] == sp[:, :-1]) & (sp[:, 1:] >= 0)).any()):
+        raise SystemExit("plain refine: a repeated partition cannot be split "
+                         "across column chunks")
+    qc = max(1, int(budget // (cols * per)))
+    out_d, out_g = [], []
+    for a in range(0, qs.shape[0], qc):
+        parts = [topk_flat(*masked_distances(
+            store.data, store.norms, store.rec_dfs, store.rec_gid, qs[a:a + qc],
+            sp[a:a + qc, c:c + cols], lo[a:a + qc, c:c + cols],
+            hi[a:a + qc, c:c + cols]), k) for c in range(0, live_w, cols)]
+        d, g = topk_flat(torch.cat([x[0] for x in parts], 1),
+                         torch.cat([x[1] for x in parts], 1), k)
+        out_d.append(d)
+        out_g.append(g)
+    return torch.cat(out_d), torch.cat(out_g), live_w
+
+
+def fleet_refine_checks(fleet, qs, k) -> dict:
+    """``refine_topk`` against its plain version at two of the fleet
+    path's shapes: shard 0's stacked-pass plan (the pass's padded plan
+    width, over the shard's own store) and ``scan_exact``'s exhaustive
+    refine over the union store.  Launched after the fleet path's counts
+    are read, so these launches are not counted."""
+    import torch
+    from repro_torch.core.query import exhaustive_selection
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.refine_topk import refine_topk
+
+    def by_partition(*plan):
+        order = torch.argsort(plan[0], dim=-1, stable=True)
+        return [torch.gather(t, 1, order).to(torch.int32).contiguous() for t in plan]
+
+    pl = fleet._ensure_placement()
+    shard = fleet.shards[0]
+    qp = pl.plan_shard(0, ops.paa(qs, fleet.cfg.shard_cfg.paa_segments), "adaptive")
+    union = fleet._union_store()
+    cases = (("stacked pass, shard " + shard.key, shard.index.store,
+              by_partition(qp.sel_part, qp.sel_lo, qp.sel_hi)),
+             ("scan_exact union", union,
+              exhaustive_selection(union.num_partitions, qs.shape[0], qs.device)))
+    out = {}
+    for label, store, (sp, lo, hi) in cases:
+        sp, lo, hi = (t.contiguous() for t in (sp, lo, hi))
+        (d2_k, g_k), secs = sync_wall(lambda: refine_topk(
+            store.data, store.norms, store.rec_dfs, store.rec_gid, qs, sp, lo, hi, k))
+        d2_p, g_p, live_w = plain_refine_chunked(store, qs, sp, lo, hi, k)
+        tol = 1e-5 * ((qs * qs).sum(-1, keepdim=True) + float(store.norms.max()))
+        err, differ = assert_same_topk(f"refine_topk [fleet {label}]", d2_k, g_k,
+                                       d2_p, g_p, tol)
+        out[label] = {"P": store.num_partitions, "cap": store.capacity,
+                      "mp": sp.shape[1], "live_width": live_w, "max_abs_err": err,
+                      "gid_queries_differ": differ, "kernel_s": secs}
+        say(f"refine_topk [fleet {label}]: max |Δd²| {err:.3g}; {differ} of "
+            f"{qs.shape[0]} queries differ in gid order at near-ties; "
+            + json.dumps(out[label], default=float))
+        del d2_p, g_p
+    return out
+
+
+def fleet_path(args, dev, cfg, report) -> dict:
+    """The fleet path (module docstring, item 3).  Every hard check raises.
+    Returns the fleet path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines import exact_knn
+    from repro_torch.eval import perturbed_queries, recall_at_k, tenant_corpus
+    from repro_torch.fleet import (FleetConfig, FleetEngine, IndexFleet,
+                                   MergePolicy)
+    from repro_torch.kernels import ops
+    from repro_torch.serve import QueryRequest
+
+    k, nq, bs = cfg.k, args.queries, 64
+    out = report.setdefault("fleet", {})
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+
+    # ---- shards: one tenant each ---------------------------------------
+    t = time.perf_counter()
+    corpus = tenant_corpus("seismic", num_shards=FLEET_TENANTS,
+                           shard_size=args.fleet_shard, series_len=cfg.series_len,
+                           seed=args.seed + 11, affinity=0.6, device=dev)
+    queries = perturbed_queries(corpus, nq, noise=0.1, seed=args.seed + 11)
+    warm = perturbed_queries(corpus, bs, noise=0.1, seed=args.seed + 12)
+    n_ins = (INSERT_BATCHES + TAIL_BATCHES) * INSERT_ROWS
+    inserts = perturbed_queries(corpus, n_ins, noise=0.1,
+                                seed=args.seed + 13).cpu().numpy()
+    union = corpus.union
+    torch.cuda.synchronize()
+    out["datagen_s"] = time.perf_counter() - t
+    seal_at = INSERT_BATCHES * INSERT_ROWS // 2          # two seals under load
+    fleet = IndexFleet(FleetConfig(shard_cfg=cfg, fanout=2, delta_capacity=seal_at,
+                                   background_compaction=True), device=dev)
+    shards = []
+    for i, block in enumerate(corpus.shards):
+        (h, secs) = sync_wall(lambda: fleet.add_shard(f"tenant{i}", block))
+        st = h.index.store
+        row = {"key": h.key, "records": h.num_records, "build_s": secs,
+               "P": st.num_partitions, "cap": st.capacity,
+               "store_gb": sum(x.numel() * x.element_size() for x in st) / 1e9,
+               "steps_s": {a: round(b, 3) for a, b in h.index.build_seconds.items()}}
+        shards.append(row)
+        say(f"fleet shard[{h.key}]: " + json.dumps(
+            {a: (round(b, 3) if isinstance(b, float) else b) for a, b in row.items()}))
+    out["shards"] = shards
+    del corpus, block, h, st
+    fleet.attach_mesh([dev])
+    q_np = queries.cpu().numpy()
+
+    # stage_ms of every fleet.query call the engines make
+    stage_acc = {}
+    fleet_query = fleet.query
+
+    def timed_query(*a, **kw):
+        d, g, info = fleet_query(*a, **kw)
+        for name, v in info.stage_ms.items():
+            stage_acc[name] = stage_acc.get(name, 0.0) + v
+        return d, g, info
+
+    fleet.query = timed_query
+
+    # ---- serving: host loop and the stacked pass ------------------------
+    truth = [fleet.scan_exact(q_np[a:a + bs]) for a in range(0, nq, bs)]
+    t_d, t_i = (np.concatenate(x) for x in zip(*truth))
+    serve, answers = {}, {}
+    for placement in ("host", "mesh"):
+        eng = FleetEngine(fleet, batch_size=bs, k=k, routing="signature", fanout=2,
+                          variant="adaptive", placement=placement)
+        eng.run(warm.cpu().numpy())                            # warm-up tick
+        row = {}
+        for label in ("cold", "cached"):      # every plan new, then all cached
+            eng.reset_metrics()
+            stage_acc.clear()
+            torch.cuda.synchronize()
+            (d, g, metrics), secs = sync_wall(lambda: eng.run(q_np))
+            st = eng.stats
+            row[label] = {
+                "tick_ms": st.total_s / st.ticks * 1e3, "qps": st.queries_per_sec,
+                "stage_ms": {a: b / st.ticks for a, b in stage_acc.items()},
+                "plan_cache_hit_rate": st.plan_cache_hit_rate,
+                "mean_partitions_touched": st.mean_partitions_touched,
+                "mean_candidates_scanned": st.mean_candidates_scanned,
+                "fanout_savings": fleet.stats.fanout_savings,
+                "recall_at_k": recall_at_k(g, t_i, k, approx_dist=d, exact_dist=t_d)}
+            answers[placement, label] = (d, g)
+        serve[placement] = row
+        say(f"fleet serve[{placement}]: " + json.dumps(row, default=float))
+    for label in ("cold", "cached"):
+        (dh, gh), (dm, gm) = answers["host", label], answers["mesh", label]
+        if not (np.array_equal(dh, dm) and np.array_equal(gh, gm)):
+            raise SystemExit(f"fleet: host and mesh answers differ ({label})")
+    say(f"fleet: host == mesh on {nq} queries, cold and cached (dist and gid bit-equal)")
+    out["serve"] = serve
+
+    # ---- exact fan-out ≡ scan_exact ≡ Dss --------------------------------
+    q64 = queries[:bs].contiguous()
+    tol = 1e-5 * ((q64.double() ** 2).sum(-1, keepdim=True) + float(
+        max(float(s.index.store.norms.max()) for s in fleet.shards)))
+    d_ex, g_ex, _ = fleet.query(q_np[:bs], k, routing="exhaustive", variant="exhaustive")
+    sq = lambda d: torch.as_tensor(d, device=dev).double() ** 2
+    gi = lambda g: torch.as_tensor(g, device=dev)
+    e1, n1 = assert_same_topk("fleet exhaustive fan-out vs scan_exact", sq(d_ex), gi(g_ex),
+                              sq(t_d[:bs]), gi(t_i[:bs]), tol)
+    (d_ss, i_ss), dss_s = sync_wall(lambda: exact_knn(q64, union, k, chunk=SCAN_CHUNK))
+    e2, n2 = assert_same_topk("fleet scan_exact vs Dss", sq(t_d[:bs]), gi(t_i[:bs]),
+                              d_ss.double() ** 2, i_ss, tol)
+    out["exact"] = {"fanout_vs_scan_max_abs_err": e1, "fanout_vs_scan_gid_queries": n1,
+                    "scan_vs_dss_max_abs_err": e2, "scan_vs_dss_gid_queries": n2,
+                    "dss_s": dss_s}
+    say(f"fleet: exhaustive fan-out == scan_exact (max |Δd²| {e1:.3g}, {n1} queries "
+        f"reorder at ties) == Dss (max |Δd²| {e2:.3g}, {n2} queries) on {bs} queries")
+    del union, d_ss, i_ss
+
+    # ---- ingest under load: WAL, background seals, ticks ---------------
+    (ROOT / "build").mkdir(exist_ok=True)
+    storage = Path(tempfile.mkdtemp(prefix="smoke_fleet_", dir=ROOT / "build"))
+    try:
+        (_, attach_s) = sync_wall(lambda: fleet.attach_storage(storage))
+        eng = FleetEngine(fleet, batch_size=bs, k=k, routing="signature", fanout=2,
+                          variant="adaptive", placement="mesh", maintenance_every=1)
+        ins_s, ticks, inflight, read_err = 0.0, [], [], 0.0
+        for b in range(INSERT_BATCHES):
+            rows = inserts[b * INSERT_ROWS:(b + 1) * INSERT_ROWS]
+            t = time.perf_counter()
+            gids = fleet.insert(rows)
+            ins_s += time.perf_counter() - t
+            if b >= INSERT_BATCHES - 8:       # acknowledged rows read back at once
+                dr, gr, _ = fleet_query(rows[:8], k, variant="exhaustive")
+                for i in range(8):
+                    hit = gr[i] == gids[i]
+                    q2 = float((rows[i].astype(np.float64) ** 2).sum())
+                    if not hit.any() or float(dr[i][hit][0]) ** 2 > 1e-5 * 2 * q2:
+                        raise SystemExit(f"fleet: acknowledged row {gids[i]} does not "
+                                         f"read back at distance 0")
+                    read_err = max(read_err, float(dr[i][hit][0]) ** 2)
+            ticket = fleet._seal_ticket
+            sealing = ticket is not None and not ticket.done()
+            for i in range(bs):
+                eng.submit_request(QueryRequest(series=q_np[i], k=k, request_id=i))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.step()
+            ticks.append((time.perf_counter() - t) * 1e3)
+            if sealing:
+                inflight.append(ticks[-1])
+        ticket = fleet._seal_ticket
+        if ticket is not None:
+            ticket.wait()
+        if fleet.stats.compactions != 2 or not inflight:
+            raise SystemExit(f"fleet: {fleet.stats.compactions} seals, {len(inflight)} "
+                             f"ticks during a seal (expected 2 seals, some in flight)")
+        ingest = {"rows": INSERT_BATCHES * INSERT_ROWS, "insert_s": ins_s,
+                  "acked_rows_per_s": INSERT_BATCHES * INSERT_ROWS / ins_s,
+                  "attach_storage_s": attach_s,
+                  "compactions": fleet.stats.compactions,
+                  "compaction_ms": fleet.stats.compaction_ms,
+                  "delta_rebuilds": fleet.stats.delta_rebuilds,
+                  "wal_bytes_appended": fleet.wal.appended_bytes,
+                  "tick_ms_mean": float(np.mean(ticks)),
+                  "tick_ms_during_seal_mean": float(np.mean(inflight)),
+                  "ticks_during_seal": len(inflight),
+                  "tick_ms_max": float(np.max(ticks)),
+                  "readback_max_d2": read_err,
+                  "plan_cache_hit_rate": eng.stats.plan_cache_hit_rate,
+                  "shards": [s.key for s in fleet.shards]}
+        for b in range(INSERT_BATCHES, INSERT_BATCHES + TAIL_BATCHES):    # WAL tail
+            fleet.insert(inserts[b * INSERT_ROWS:(b + 1) * INSERT_ROWS])
+        ingest["wal_bytes_pending"] = fleet.stats.wal_bytes
+        out["ingest"] = ingest
+        say("fleet ingest: " + json.dumps(ingest, default=float))
+
+        # ---- restart: save, open into a new fleet, replay the WAL --------
+        live_d, live_g, _ = fleet_query(q_np[:bs], k)
+        (_, save_s) = sync_wall(lambda: fleet.save())
+        (reopened, open_s) = sync_wall(lambda: IndexFleet.open(storage, device=dev))
+        re_d, re_g, _ = reopened.query(q_np[:bs], k)
+        if not (np.array_equal(re_d, live_d) and np.array_equal(re_g, live_g)):
+            raise SystemExit("fleet: answers after restart differ from the live fleet's")
+        out["restart"] = {"save_s": save_s, "open_and_replay_s": open_s,
+                          "replayed_rows": reopened.delta.occupancy,
+                          "shards": len(reopened.shards)}
+        say(f"fleet restart: save {save_s:.2f} s, open + WAL replay "
+            f"({reopened.delta.occupancy} rows) {open_s:.2f} s; {bs} answers bit-equal")
+        del reopened
+
+        # ---- merge the two sealed delta shards ---------------------------
+        pre_d, pre_g, _ = fleet_query(q_np[:bs], k, routing="exhaustive",
+                                      variant="exhaustive")
+        rep_m, merge_s = sync_wall(lambda: fleet.maintenance(MergePolicy(
+            small_shard_records=seal_at, max_merged_records=2 * seal_at)))
+        if len(rep_m["merged"]) != 1:
+            raise SystemExit(f"fleet: maintenance merged {rep_m['merged']}")
+        post_d, post_g, _ = fleet_query(q_np[:bs], k, routing="exhaustive",
+                                        variant="exhaustive")
+        sc_d, sc_g = fleet.scan_exact(q_np[:bs])
+        e3, n3 = assert_same_topk("fleet after merge vs scan_exact", sq(post_d),
+                                  gi(post_g), sq(sc_d), gi(sc_g), tol)
+        e4, n4 = assert_same_topk("fleet after merge vs before", sq(post_d), gi(post_g),
+                                  sq(pre_d), gi(pre_g), tol)
+        out["merge"] = {"seconds": merge_s, "merged": rep_m["merged"],
+                        "shards": [s.key for s in fleet.shards],
+                        "vs_scan_max_abs_err": e3, "vs_before_max_abs_err": e4,
+                        "vs_before_gid_queries": n4}
+        say(f"fleet merge: {rep_m['merged']} in {merge_s:.2f} s; exhaustive answers "
+            f"== scan_exact (max |Δd²| {e3:.3g}) and == before the merge "
+            f"({n4} queries reorder at ties)")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        out["launches"] = launches
+        out["seconds"] = time.perf_counter() - t_path
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        say(f"fleet-path launches: {launches} ({out['seconds']:.1f} s, peak device "
+            f"memory {out['peak_memory_gb']:.1f} GB)")
+        missing = [name for name in FLEET_KERNELS if launches[name] <= 0]
+        if missing:
+            raise SystemExit(f"kernels not launched on the fleet path: {missing}")
+        out["refine_checks"] = fleet_refine_checks(fleet, q64, k)
+        out["peak_memory_gb_with_checks"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -217,6 +534,8 @@ def main(argv=None) -> int:
                     help="series in each of the sift/dna/eeg/seismic datasets")
     ap.add_argument("--tenant-shard", type=int, default=262_144,
                     help="series in each of the tenant corpus's 4 shards")
+    ap.add_argument("--fleet-shard", type=int, default=1_048_576,
+                    help="series in each of the fleet's 4 tenant shards")
     ap.add_argument("--report", default=None,
                     help="also write the full JSON report to this path")
     args = ap.parse_args(argv)
@@ -746,9 +1065,26 @@ def main(argv=None) -> int:
         "ptxas": ptxas_of("qdots")})
     del rows_q
 
+    # ---- fleet path, launch counts zeroed (the serve data and index go) ---
+    del data, index, store, engines, eng, eng_p, x_c, z64, sp, lo_, hi_, spc, loc, hic
+    del main_plan, d_dn, g_dn, d_fu, g_fu, qq
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9       # serve + eval + kernels
+    fleet_launches = fleet_path(args, dev, cfg, report)
+    for row in kernels:
+        if row["name"] == "refine_topk":
+            row["fleet_plans"] = report["fleet"]["refine_checks"]
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                c["max_abs_err"] for c in row["fleet_plans"].values()])
+    peak_gb = max(peak_gb, report["fleet"]["peak_memory_gb_with_checks"])
+    say(f"peak device memory of the smoke: {peak_gb:.1f} GB")
+    by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches}
+    for row in kernels:
+        row["launches_by_path"] = {p_: c[row["name"]] for p_, c in by_path.items()}
+
     line = json.dumps({"kernels": kernels})
     report["kernels"] = kernels
-    report["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["max_memory_allocated_gb"] = peak_gb
     report["card"] = smi
     if args.report:
         path = Path(args.report)

@@ -12,15 +12,19 @@ from repro_torch.core.centroids import CentroidSet, compute_centroids
 from repro_torch.core.assignment import assign_groups, assignment_distances
 from repro_torch.core.trie import TrieForest, build_forest
 from repro_torch.core.packing import ffd_pack
-from repro_torch.core.traversal import TrieDevice, descend, route_records
+from repro_torch.core.traversal import (TrieDevice, descend, pad_trie,
+                                        route_records)
 from repro_torch.core.index import (ClimberIndex, PartitionStore, build_index,
                                     build_store, index_from_arrays)
-from repro_torch.core.query import (QueryPlan, candidates_scanned, compact_plan,
-                                    default_slot_budget, get_planner, knn_query,
+from repro_torch.core.query import (QueryPlan, ShardPlanContext,
+                                    candidates_scanned, compact_plan,
+                                    default_slot_budget, device_planner_names,
+                                    get_device_planner, get_planner, knn_query,
                                     make_recall_target_planner, plan,
                                     plan_adaptive, plan_exhaustive, plan_knn,
                                     plan_od_smallest, planner_names,
-                                    register_planner, register_recall_target)
+                                    register_device_planner, register_planner,
+                                    register_recall_target)
 from repro_torch.core.refine import (PAD_DIST, default_use_kernel,
                                      dispatch_refine, merge_topk, refine,
                                      resolve_use_kernel)
@@ -32,11 +36,12 @@ __all__ = [
     "overlap_distance", "weight_distance", "total_weight",
     "compute_centroids", "CentroidSet", "assign_groups",
     "assignment_distances", "build_forest", "TrieForest", "ffd_pack",
-    "TrieDevice", "descend", "route_records", "ClimberIndex",
+    "TrieDevice", "descend", "pad_trie", "route_records", "ClimberIndex",
     "PartitionStore", "build_index", "build_store", "index_from_arrays",
-    "QueryPlan", "knn_query", "plan", "plan_knn", "plan_adaptive",
+    "QueryPlan", "ShardPlanContext", "knn_query", "plan", "plan_knn", "plan_adaptive",
     "plan_exhaustive", "plan_od_smallest", "register_planner", "get_planner",
     "planner_names", "make_recall_target_planner", "register_recall_target",
+    "register_device_planner", "get_device_planner", "device_planner_names",
     "compact_plan", "default_slot_budget",
     "candidates_scanned", "dispatch_refine", "refine", "merge_topk",
     "PAD_DIST", "default_use_kernel", "resolve_use_kernel",

@@ -23,8 +23,18 @@ by stable sorts, which keep the lowest-index tie-break.
 slot budget (:func:`compact_plan`, :func:`default_slot_budget`);
 :func:`knn_query` composes featurize → plan → refine.
 :func:`make_recall_target_planner` / :func:`register_recall_target` add an
-adaptive variant that spends more (host planners only).  The JAX package's
-device-planner registry (``ShardPlanContext``) waits for the fleet slice.
+adaptive variant that spends more.
+
+Every planner also runs against a *padded* shard skeleton: the fleet's
+stacked pass (``repro_torch.fleet.placement``) plans each sealed shard from
+``[S, ...]`` trie tables padded to fleet-wide maxima, so the planner gets a
+:class:`ShardPlanContext` with the shard's real group, candidate and
+partition counts next to the padded widths; columns past the real counts
+are masked to the ``_BIG`` sentinel before any sort or arg-reduction, which
+keeps the live plan entries (values and order) equal to the host
+planner's.  ``ctx=None`` is the host path, unchanged.  Planners that run
+on that path are registered in a second registry
+(:func:`register_device_planner`); the four built-ins are.
 """
 from __future__ import annotations
 
@@ -42,6 +52,21 @@ from repro_torch.core.traversal import descend
 
 _BIG = 1e9
 _INT32_MAX = 2**31 - 1
+
+
+class ShardPlanContext(NamedTuple):
+    """Real-vs-padded shape context for planning over a padded skeleton.
+
+    The counts may be Python ints (the fleet's stacked pass knows them on
+    the host, so planning needs no copy back from the card) or 0-dim
+    tensors.  ``None`` ctx (the host path) means real == padded.
+    """
+
+    num_groups: int         # real centroid rows (incl. the fallback row 0)
+    num_candidates: int     # real T for this shard
+    num_partitions: int     # real partition count
+    t_static: int           # padded candidate width
+    p_static: int           # padded partition width (exhaustive plans)
 
 
 class QueryPlan(NamedTuple):
@@ -82,13 +107,24 @@ def candidates_scanned(plan: QueryPlan, store: PartitionStore) -> torch.Tensor:
     return torch.where(_first_occurrence_mask(sp), cnt, 0).sum(dim=-1)
 
 
-def _candidates(index: ClimberIndex, p4_rank_q: torch.Tensor):
-    """Top-T candidate groups by the (OD, WD) ladder + their trie descent."""
+def _candidates(index: ClimberIndex, p4_rank_q: torch.Tensor,
+                ctx: Optional[ShardPlanContext] = None):
+    """Top-T candidate groups by the (OD, WD) ladder + their trie descent.
+
+    With ``ctx`` the centroid columns past the shard's real group count are
+    masked to ``_BIG`` before the sort, and candidate slots past the real T
+    after it; the stable sort's lowest-index tie-break then makes the first
+    ``ctx.num_candidates`` picks the host planner's.
+    """
     cfg = index.cfg
-    t = _num_candidates(index)
+    t = ctx.t_static if ctx is not None else _num_candidates(index)
     od, wd = assignment.assignment_distances(
         p4_rank_q, index.centroid_onehot, cfg.num_pivots,
         decay=cfg.decay, decay_lambda=cfg.decay_lambda)
+    if ctx is not None:
+        pad_col = torch.arange(od.shape[-1], device=od.device) >= ctx.num_groups
+        od = torch.where(pad_col[None, :], _BIG, od)
+        wd = torch.where(pad_col[None, :], _BIG, wd)
     # lexicographic (od, wd): od is integral in [0, m]; wd bounded by TW < m+1
     score = od * (cfg.prefix_len + 2.0) + wd
     grp = torch.sort(score, dim=-1, stable=True).indices[:, :t]    # [Q, T]
@@ -96,6 +132,11 @@ def _candidates(index: ClimberIndex, p4_rank_q: torch.Tensor):
     node, pathlen, parent = descend(
         index.trie, p4_rank_q[:, None, :].expand(-1, t, -1), grp)
     size = index.trie.node_size[node.long()]
+    if ctx is not None:
+        valid = (torch.arange(t, device=od.device) < ctx.num_candidates)[None, :]
+        cand_od = torch.where(valid, cand_od, _BIG)
+        cand_wd = torch.where(valid, cand_wd, _BIG)
+        size = torch.where(valid, size, 0.0)
     return grp, cand_od, cand_wd, node, pathlen, parent, size
 
 
@@ -123,9 +164,10 @@ def _node_targets(index: ClimberIndex, nodes: torch.Tensor):
     return parts, lo.to(torch.int32), hi.to(torch.int32)
 
 
-def plan_knn(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
+def plan_knn(index: ClimberIndex, p4_rank_q: torch.Tensor,
+             ctx: Optional[ShardPlanContext] = None) -> QueryPlan:
     """CLIMBER-kNN (Algorithm 3)."""
-    grp, od, wd, node, pathlen, parent, size = _candidates(index, p4_rank_q)
+    grp, od, wd, node, pathlen, parent, size = _candidates(index, p4_rank_q, ctx)
     best = _rank_best(od, wd, pathlen, size)[:, None]           # [Q, 1]
     node_star = _take(node, best)[:, 0]
     parts, lo, hi = _node_targets(index, node_star)
@@ -133,10 +175,11 @@ def plan_knn(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
                      node=node_star, pathlen=_take(pathlen, best)[:, 0])
 
 
-def plan_adaptive(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
+def plan_adaptive(index: ClimberIndex, p4_rank_q: torch.Tensor,
+                  ctx: Optional[ShardPlanContext] = None) -> QueryPlan:
     """CLIMBER-kNN-Adaptive (paper §VI)."""
     cfg = index.cfg
-    grp, od, wd, node, pathlen, parent, size = _candidates(index, p4_rank_q)
+    grp, od, wd, node, pathlen, parent, size = _candidates(index, p4_rank_q, ctx)
     best = _rank_best(od, wd, pathlen, size)[:, None]
     q, t = grp.shape
     node_star = _take(node, best)[:, 0]
@@ -166,6 +209,15 @@ def plan_adaptive(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
                        .to(torch.int32), dim=-1)
     first_occurrence = torch.diagonal(dup, dim1=1, dim2=2) == 1
     ent_size = torch.where(first_occurrence, ent_size, torch.zeros_like(ent_size))
+    if ctx is not None:
+        # padded candidate slots can land on the real fallback group 0 (the
+        # sort fills the tail with _BIG-tied columns, lowest index first);
+        # the host planner never memorises them, so they must not expand or
+        # count toward coverage
+        ent_valid = torch.repeat_interleave(
+            torch.arange(t, device=grp.device) < ctx.num_candidates, 2)
+        ent_valid = _take(ent_valid[None, :].expand(q, -1), order)
+        ent_size = torch.where(ent_valid, ent_size, torch.zeros_like(ent_size))
 
     # expansion rule (§VI): all groups tied at the smallest OD, and entries
     # until the cumulative size covers K
@@ -175,6 +227,8 @@ def plan_adaptive(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
     cum_before = torch.cumsum(ent_size, dim=-1) - ent_size
     need = cum_before < float(cfg.k)
     selected = first_occurrence & (need | od_tied)
+    if ctx is not None:
+        selected = selected & ent_valid
     selected[:, 0] = True
 
     # partition cap: adaptive_factor × the partitions CLIMBER-kNN touches
@@ -206,18 +260,24 @@ def exhaustive_selection(num_partitions: int, q: int, device):
     return parts, lo, hi
 
 
-def plan_exhaustive(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
+def plan_exhaustive(index: ClimberIndex, p4_rank_q: torch.Tensor,
+                    ctx: Optional[ShardPlanContext] = None) -> QueryPlan:
     """Lossless fallback: scan every partition (exact kNN over the store)."""
     q = p4_rank_q.shape[0]
-    parts, lo, hi = exhaustive_selection(index.store.num_partitions, q,
-                                         p4_rank_q.device)
+    if ctx is not None:
+        parts, lo, hi = exhaustive_selection(ctx.p_static, q, p4_rank_q.device)
+        parts = torch.where(parts < ctx.num_partitions, parts, -1)
+    else:
+        parts, lo, hi = exhaustive_selection(index.store.num_partitions, q,
+                                             p4_rank_q.device)
     zero = torch.zeros((q,), dtype=torch.int32, device=p4_rank_q.device)
     return QueryPlan(sel_part=parts, sel_lo=lo, sel_hi=hi, node=zero, pathlen=zero)
 
 
-def plan_od_smallest(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
+def plan_od_smallest(index: ClimberIndex, p4_rank_q: torch.Tensor,
+                     ctx: Optional[ShardPlanContext] = None) -> QueryPlan:
     """OD-Smallest ablation (§VII-C): all partitions of all min-OD groups."""
-    grp, od, wd, node, pathlen, parent, size = _candidates(index, p4_rank_q)
+    grp, od, wd, node, pathlen, parent, size = _candidates(index, p4_rank_q, ctx)
     min_od = od.min(dim=-1, keepdim=True).values
     sel_grp = od <= min_od + 0.5                                # [Q, T]
     roots = index.trie.group_root[grp]                          # [Q, T]
@@ -277,25 +337,71 @@ register_planner("od_smallest", plan_od_smallest)
 register_planner("exhaustive", plan_exhaustive)
 
 
+# -- device variants ----------------------------------------------------
+# A device planner takes a mandatory ShardPlanContext:
+# ``(index_view, p4_rank_q, ctx) -> QueryPlan``, runs against a padded
+# skeleton, and yields the host planner's live entries in the same order —
+# which is what keeps the fleet's stacked pass equal to its host loop.
+# Host planners without a device variant plan on the host under mesh
+# placement.
+DevicePlanner = Callable[..., QueryPlan]
+
+_DEVICE_PLANNERS: Dict[str, DevicePlanner] = {}
+
+
+def register_device_planner(name: str, fn: Optional[DevicePlanner] = None):
+    """Register the device (padded-skeleton) variant of planner ``name``."""
+    if fn is None:
+        return partial(register_device_planner, name)
+    _DEVICE_PLANNERS[name] = fn
+    return fn
+
+
+def get_device_planner(name: str) -> Optional[DevicePlanner]:
+    """Device variant of ``name``, or None (→ host planning)."""
+    return _DEVICE_PLANNERS.get(name)
+
+
+def device_planner_names() -> Tuple[str, ...]:
+    return tuple(sorted(_DEVICE_PLANNERS))
+
+
+# the four built-ins are ctx-aware host planners: one function, both paths
+register_device_planner("knn", plan_knn)
+register_device_planner("adaptive", plan_adaptive)
+register_device_planner("od_smallest", plan_od_smallest)
+register_device_planner("exhaustive", plan_exhaustive)
+
+
+def _with_cfg(index, cfg):
+    """The same index or shard view with ``cfg`` swapped in (an index is a
+    dataclass; the fleet's ``ShardView`` is rebuilt field by field)."""
+    if dataclasses.is_dataclass(index):
+        return dataclasses.replace(index, cfg=cfg)
+    return type(index)(cfg, index.centroid_onehot, index.trie)
+
+
 def make_recall_target_planner(spend_factor: float) -> Planner:
     """An adaptive-planner variant that spends ``spend_factor`` × more.
 
     Scales both the coverage requirement (``cfg.k``) and the partition cap
     (``cfg.adaptive_factor``) by ``spend_factor``, rounded up, so recall
     rises with spend; ``spend_factor == 1`` is :func:`plan_adaptive` itself.
-    The planner carries ``spend_factor`` as an attribute.
+    The planner is ctx-aware (one function for the host and the device
+    registry) and carries ``spend_factor`` as an attribute.
     """
     if spend_factor < 1.0:
         raise ValueError(f"spend_factor must be >= 1, got {spend_factor}")
 
-    def planner(index: ClimberIndex, p4_rank_q: torch.Tensor) -> QueryPlan:
+    def planner(index, p4_rank_q: torch.Tensor,
+                ctx: Optional[ShardPlanContext] = None) -> QueryPlan:
         if spend_factor == 1.0:
-            return plan_adaptive(index, p4_rank_q)
+            return plan_adaptive(index, p4_rank_q, ctx)
         cfg = index.cfg
         boosted = cfg.replace(
             k=int(math.ceil(cfg.k * spend_factor)),
             adaptive_factor=int(math.ceil(cfg.adaptive_factor * spend_factor)))
-        return plan_adaptive(dataclasses.replace(index, cfg=boosted), p4_rank_q)
+        return plan_adaptive(_with_cfg(index, boosted), p4_rank_q, ctx)
 
     planner.spend_factor = spend_factor
     return planner
@@ -303,10 +409,12 @@ def make_recall_target_planner(spend_factor: float) -> Planner:
 
 def register_recall_target(spend_factor: float,
                            name: str = "recall_target") -> Planner:
-    """Register a recall-targeted variant under ``name`` (host planner);
-    re-registering a name replaces it."""
+    """Register a recall-targeted variant under ``name`` (host + device);
+    re-registering a name replaces it — a fleet must then drop its cached
+    plans (``IndexFleet`` keys them on its placement epoch)."""
     planner = make_recall_target_planner(spend_factor)
     register_planner(name, planner)
+    register_device_planner(name, planner)
     return planner
 
 

@@ -2,8 +2,9 @@
 
 The forest is a sorted edge-key table (``node_id * r + pivot``); descending
 a rank-sensitive signature is m rounds of ``torch.searchsorted``, which
-lands on the same nodes as the paper's per-object pointer walk.  The fleet's
-``pad_trie`` is not ported yet.
+lands on the same nodes as the paper's per-object pointer walk.
+:func:`pad_trie` pads a skeleton with inert entries for the fleet's
+stacked planner (``repro_torch.fleet.device_plan``).
 """
 from __future__ import annotations
 
@@ -58,6 +59,61 @@ class TrieDevice(NamedTuple):
             num_pivots=int(f.num_pivots),
             num_partitions=int(f.num_partitions),
         )
+
+
+def _pad1(x: torch.Tensor, width: int, value) -> torch.Tensor:
+    """``x`` with ``width`` entries of ``value`` appended on axis 0."""
+    tail = torch.full((width,) + tuple(x.shape[1:]), value, dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, tail])
+
+
+def pad_trie(trie: TrieDevice, *, num_nodes: int, num_edges: int,
+             max_parts: int, num_groups: int) -> TrieDevice:
+    """Pad a skeleton to fixed sizes with *inert* entries.
+
+    The fleet's stacked planner (``repro_torch.fleet.device_plan``) stacks
+    ragged per-shard skeletons into one ``[S, ...]`` table set; the padding
+    can never change a descent or a plan:
+
+      * edge keys pad with int32 max — a real key is ``node * r + pivot``
+        below 2**31, so no probe matches a pad edge and ``searchsorted``
+        still sees a sorted table;
+      * the node axis pads with inert nodes (no children, size 0, empty DFS
+        interval ``[0, 0)``, no partitions) — ``num_nodes`` must exceed the
+        real node count so index ``num_nodes - 1`` is inert;
+      * pad groups root at that inert node and default to partition ``-1``.
+
+    Returns the padded TrieDevice (num_pivots/num_partitions unchanged).
+    """
+    n = int(trie.has_children.shape[0])
+    e = int(trie.edge_key.shape[0])
+    g = int(trie.group_root.shape[0])
+    p = int(trie.part_ids_pad.shape[1])
+    if num_nodes <= n:
+        raise ValueError(f"num_nodes={num_nodes} must exceed the real node "
+                         f"count {n} (the last index must be inert)")
+    if num_edges < e or num_groups < g or max_parts < p:
+        raise ValueError("pad_trie cannot shrink a skeleton")
+    dn, de, dg = num_nodes - n, num_edges - e, num_groups - g
+    part_ids = torch.cat([trie.part_ids_pad, torch.full(
+        (n, max_parts - p), -1, dtype=torch.int32,
+        device=trie.part_ids_pad.device)], dim=1)
+    return TrieDevice(
+        edge_key=_pad1(trie.edge_key, de, 2**31 - 1),
+        edge_child=_pad1(trie.edge_child, de, 0),
+        has_children=_pad1(trie.has_children, dn, False),
+        node_size=_pad1(trie.node_size, dn, 0.0),
+        node_depth=_pad1(trie.node_depth, dn, 0),
+        dfs_in=_pad1(trie.dfs_in, dn, 0),
+        dfs_out=_pad1(trie.dfs_out, dn, 0),
+        part_start=_pad1(trie.part_start, dn, int(trie.part_start[-1])),
+        part_ids_pad=_pad1(part_ids, dn, -1),
+        group_root=_pad1(trie.group_root, dg, num_nodes - 1),
+        group_default_part=_pad1(trie.group_default_part, dg, -1),
+        num_pivots=trie.num_pivots,
+        num_partitions=trie.num_partitions,
+    )
 
 
 def descend(trie: TrieDevice, p4_rank: torch.Tensor, group: torch.Tensor):

@@ -155,6 +155,16 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {dev}")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: the fleet's compactor
+    thread launches kernels beside the serving thread."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     """The layout a kernel takes: dtype, rank, and C-contiguity."""
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():

@@ -66,7 +66,7 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         _lib.check(_lib.library().climber_pairwise_l2(
             q.data_ptr(), x.data_ptr(), out.data_ptr(), qn, cn, n,
             _lib.stream(q.device)), "pairwise_l2")
-    pairwise_l2.launches += 1
+    _lib.count_launch(pairwise_l2)
     return out
 
 
@@ -90,7 +90,7 @@ def qdots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         _lib.check(_lib.library().climber_qdots(
             q.data_ptr(), rows.data_ptr(), out.data_ptr(), qn, cn, n,
             _lib.stream(q.device)), "qdots")
-    qdots.launches += 1
+    _lib.count_launch(qdots)
     return out
 
 

@@ -36,7 +36,7 @@ def paa(x: torch.Tensor, segments: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         _lib.check(lib.climber_paa(x.data_ptr(), out.data_ptr(), b, n, segments,
                                    _lib.stream(x.device)), "paa")
-    paa.launches += 1
+    _lib.count_launch(paa)
     return out
 
 

@@ -72,7 +72,7 @@ def pivot_rank(paa: torch.Tensor, pivots: torch.Tensor, m: int) -> torch.Tensor:
                                           out.data_ptr(), b, w, r, m, 0,
                                           _lib.stream(paa.device)),
                    "pivot_rank")
-    pivot_rank.launches += 1
+    _lib.count_launch(pivot_rank)
     return out
 
 

@@ -202,7 +202,7 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
             sel_lo.data_ptr(), sel_hi.data_ptr(), partial.data_ptr(),
             d2.data_ptr(), gid.data_ptr(), qn, mp, cap, n, k, s,
             _lib.stream(dev)), "refine_topk")
-    refine_topk.launches += 1
+    _lib.count_launch(refine_topk)
     return d2, gid
 
 

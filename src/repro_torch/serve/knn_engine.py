@@ -13,14 +13,23 @@ on the signature; a tick whose live rows all hit skips planning.  Each
 stage's wall time is summed into :class:`EngineStats`, with the card
 synchronised before every clock read.
 
-The JAX package's observability hooks (metrics registry, span tracer, trace
-contexts, device-trace capture) and its legacy mutable-request adapter are
-not ported yet.
+Observability (``repro_torch.obs``), as in the JAX package: every tick opens
+a ``serve.tick`` span with ``query.featurize`` / ``query.plan`` /
+``query.refine`` children, arrival-to-answer latencies land in the
+``serve.latency_ms`` histogram and the queue length in the
+``serve.queue_depth`` gauge (labelled per loop), and a weakref collector
+exposes the :class:`EngineStats` rates.  :meth:`BatchedServingLoop._after_tick`
+is the between-batches hook the fleet engine drives its upkeep from.  The
+JAX package's network-plane hooks (``make_ticket``, ``execute_prepared``,
+``fail_tickets``, per-tenant in-flight counts) and its legacy
+mutable-request adapter are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
+import weakref
 from collections import OrderedDict
 from typing import List, Optional, Tuple
 
@@ -31,8 +40,12 @@ from repro_torch.core.index import ClimberIndex
 from repro_torch.core.query import (candidates_scanned, default_slot_budget,
                                     get_planner, plan as plan_queries)
 from repro_torch.core.refine import dispatch_refine, resolve_use_kernel
+from repro_torch.obs import REGISTRY, TRACER
 from repro_torch.serve import api
 from repro_torch.utils.device import synchronize
+
+# distinguishes each loop's metric series in the process registry
+_LOOP_SEQ = itertools.count()
 
 
 class PlanCache:
@@ -164,12 +177,45 @@ class BatchedServingLoop:
         self.k = k
         self.queue: List[QueryTicket] = []
         self.stats = EngineStats()
+        # registry wiring: a per-instance label keeps concurrent loops'
+        # series apart; EngineStats keeps its dataclass shape and is
+        # exposed through a weakref collector
+        self.obs_label = f"{type(self).__name__.lower()}{next(_LOOP_SEQ)}"
+        self.latency_hist = REGISTRY.histogram("serve.latency_ms",
+                                               loop=self.obs_label)
+        self.queue_gauge = REGISTRY.gauge("serve.queue_depth",
+                                          loop=self.obs_label)
+        ref = weakref.ref(self)
+
+        def _collect():
+            loop = ref()
+            if loop is None:
+                return None
+            s = loop.stats
+            return {"serve.queries": s.queries, "serve.ticks": s.ticks,
+                    "serve.queries_per_sec": s.queries_per_sec,
+                    "serve.plan_cache_hit_rate": s.plan_cache_hit_rate}
+
+        REGISTRY.add_collector(_collect, loop=self.obs_label)
 
     def reset_metrics(self) -> None:
+        """Zero this loop's aggregate stats and latency histogram."""
         self.stats = EngineStats()
+        self.latency_hist.reset()
+
+    def capture_device_trace(self, log_dir):
+        """Opt-in ``torch.profiler`` capture of everything this loop runs
+        inside the block (see :func:`repro_torch.obs.profile.device_trace`)."""
+        from repro_torch.obs import device_trace
+        return device_trace(log_dir)
 
     def _execute(self, qbatch: np.ndarray, nlive: int):
         raise NotImplementedError
+
+    def _after_tick(self) -> None:
+        """Hook run after each completed queue tick (between batches, off
+        the per-query latency path); the fleet engine runs its lifecycle
+        maintenance here."""
 
     def validate_series(self, series, rid: int = 0) -> np.ndarray:
         """A ``[series_len]`` float32 row or a ValueError."""
@@ -192,6 +238,7 @@ class BatchedServingLoop:
         self.validate_k(req.k, req.request_id)
         ticket = QueryTicket(req, series)
         self.queue.append(ticket)
+        self.queue_gauge.set(len(self.queue))
         return ticket
 
     def prepare_batch(self, tickets: List[QueryTicket]) -> np.ndarray:
@@ -222,6 +269,7 @@ class BatchedServingLoop:
                 latency_ms=(done_at - t.submitted_at) * 1e3, batch_fill=fill)
             t.done = True
             metrics.append(qm)
+            self.latency_hist.observe(t.result.latency_ms)
         self.stats.observe(metrics)
 
     def step(self) -> int:
@@ -230,10 +278,13 @@ class BatchedServingLoop:
         if not self.queue:
             return 0
         live = self.queue[:min(self.batch_size, len(self.queue))]
-        dist, gid, touched, scanned, dt = \
-            self._execute(self.prepare_batch(live), len(live))
+        with TRACER.span("serve.tick", loop=self.obs_label, live=len(live)):
+            dist, gid, touched, scanned, dt = \
+                self._execute(self.prepare_batch(live), len(live))
         del self.queue[:len(live)]
+        self.queue_gauge.set(len(self.queue))
         self._finish_batch(live, dist, gid, touched, scanned, dt)
+        self._after_tick()
         return len(live)
 
     def run_until_drained(self, max_ticks: int = 10_000) -> None:
@@ -268,7 +319,10 @@ class BatchedServingLoop:
             if pad:
                 chunk = np.concatenate(
                     [chunk, np.zeros((pad, chunk.shape[1]), np.float32)])
-            dist, gid, touched, scanned, dt = self._execute(chunk, nlive)
+            with TRACER.span("serve.tick", loop=self.obs_label, live=nlive):
+                dist, gid, touched, scanned, dt = self._execute(chunk, nlive)
+            for _ in range(nlive):           # direct API: no queue wait
+                self.latency_hist.observe(dt * 1e3)
             dists.append(dist[:nlive, :kq])
             gids.append(gid[:nlive, :kq])
             batch_metrics = [
@@ -382,14 +436,18 @@ class ClimberEngine(BatchedServingLoop):
         dev = self.device
         t0 = time.perf_counter()
         qb = torch.as_tensor(qbatch, device=dev)
-        p4r = self._featurize(qb)
-        synchronize(dev)
+        with TRACER.span("query.featurize"):
+            p4r = self._featurize(qb)
+            synchronize(dev)
         t1 = time.perf_counter()
-        sel_part, sel_lo, sel_hi, touched, scanned = self._plan_batch(p4r, nlive)
-        synchronize(dev)
+        with TRACER.span("query.plan", variant=self.variant):
+            sel_part, sel_lo, sel_hi, touched, scanned = \
+                self._plan_batch(p4r, nlive)
+            synchronize(dev)
         t2 = time.perf_counter()
-        dist, gid = self._refine(qb, sel_part, sel_lo, sel_hi)
-        synchronize(dev)
+        with TRACER.span("query.refine"):
+            dist, gid = self._refine(qb, sel_part, sel_lo, sel_hi)
+            synchronize(dev)
         t3 = time.perf_counter()
         self.stats.featurize_s += t1 - t0
         self.stats.plan_s += t2 - t1

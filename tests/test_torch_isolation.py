@@ -100,3 +100,25 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     res = subprocess.run([sys.executable, str(tmp_path / "chip_smoke.py")],
                          capture_output=True, text=True, timeout=120, cwd=tmp_path)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_scan_sees_the_fleet_packages():
+    rel = {str(p.relative_to(REPO / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    for pkg, modules in (("obs", {"registry", "tracer", "profile"}),
+                         ("distributed", {"store"}),
+                         ("fleet", {"fleet", "router", "device_plan", "placement",
+                                    "engine"}),
+                         ("fleet/lifecycle", {"wal", "snapshot", "compactor", "merge"})):
+        assert {f"{pkg}/{m}.py" for m in modules | {"__init__"}} <= rel
+
+
+def test_fleet_without_a_card_raises(monkeypatch, tmp_path):
+    from repro_torch.fleet import FleetConfig, IndexFleet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = FleetConfig(shard_cfg=ClimberConfig(series_len=64, paa_segments=8,
+                                              num_pivots=16, prefix_len=4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IndexFleet(cfg)
+    IndexFleet(cfg, device="cpu").save(tmp_path / "f")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IndexFleet.open(tmp_path / "f")
