@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's three paths once on one NVIDIA card, at the paper's
+Drives the port's five paths once on one NVIDIA card, at the paper's
 configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10, c=3000,
 K=500), with every kernel's launch count zeroed just before each path and
 read just after it:
@@ -26,7 +26,12 @@ read just after it:
    fan-out 2, adaptive) with ``placement="host"`` and ``"mesh"`` (the
    stacked one-card pass), which must agree bit for bit, scored against
    ``scan_exact``; one exhaustive fan-out batch against ``scan_exact`` and
-   ``scan_exact`` against Dss; ingest under load (64 insert batches of
+   ``scan_exact`` against Dss; the online recall sentinel on the same 256
+   queries (``sentinel_rate=0.05``, recalibration every 4 audits, two
+   audits after each tick, then ``drain()``: answers bit-equal with it on
+   and off, the audits exactly the queries its seeded RNG draws, their mean
+   recall equal to ``recall_at_k`` against Dss through the plain
+   ``pairwise_l2``); ingest under load (64 insert batches of
    1,024 rows into a WAL-durable fleet under ``build/``, each followed by a
    serving tick that runs maintenance, so the delta seals twice in the
    background; acknowledged rows must read back at once), a 4-batch WAL
@@ -36,6 +41,31 @@ read just after it:
    against its plain version at two of the fleet's shapes: one shard's
    stacked-pass plan and ``scan_exact``'s exhaustive refine over the union
    store.
+4. **net**, on that fleet: ``serve_in_thread(FleetEngine(fleet, batch
+   size 64, k=500, signature routing, fan-out 2))`` on 127.0.0.1 (its
+   admission sized for 256 requests in flight), 256 queries through one
+   pipelined ``ClimberClient.query_batch``, then 4 concurrent clients × 64
+   single queries that retry on ``RetryLater``, each client a process of
+   its own; the metrics page, the
+   flight recorder's traces and the health card over the same socket.
+   Every socket answer must equal ``IndexFleet.query`` bit for bit and the
+   server must drain and stop.  After its launch counts are read,
+   ``refine_topk`` is held against its plain version on a two-row tick's
+   plans over every sealed shard and over the live delta.
+5. **frontier**: ``run_frontier`` at ``ClimberConfig()`` (a spec subclass
+   whose ``shard_cfg()`` returns it) over ``randomwalk`` and ``seismic``
+   tenant corpora at 1 and 4 shards of ``--frontier-shard`` series, 64
+   queries, 32 calibration queries, the spec's fan-outs, thresholds, spend
+   factors (1, 2, 4) and slot budgets (4, 16), ground truth by Dss
+   through a ``GroundTruthCache``.  Hard checks: exhaustive routing scans at
+   least as much as every routed cell; a slot budget b touches at most
+   b × shards partitions; on seismic × 4, a fresh evaluation fleet scans
+   as the sweep did, and its exhaustive routing with the exhaustive planner
+   and the sweep's cached ground truth both give the answer of Dss through
+   the plain ``pairwise_l2`` up to k-th-distance ties.  After its launch
+   counts are read, ``pairwise_l2`` is held against its plain version on
+   one Dss chunk of the sweep (64 queries × 2,048 series), and
+   ``refine_topk`` on shard 0's exhaustive and spend-4 plans.
 
 Then, off the paths, it holds each CUDA kernel against its plain PyTorch
 version on the same inputs at the paths' shapes, times both with CUDA
@@ -56,7 +86,7 @@ JSON report there.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--num 4194304] [--queries 256]
 [--other-num 1048576] [--tenant-shard 262144] [--fleet-shard 1048576]
-[--report PATH]``
+[--frontier-shard 1048576] [--report PATH]``
 from the repository root (it puts ``src/`` on ``sys.path`` itself).  It
 needs a CUDA card and ``nvcc``; without a card it exits non-zero before
 printing any result.
@@ -150,6 +180,41 @@ def assert_same_topk(label, d2_a, g_a, d2_b, g_b, tol):
                 raise SystemExit(f"{label}: query {i} answer set differs "
                                  f"away from the k-th distance")
     return float(derr.max()), int(differ.sum())
+
+
+def l2_check(label, q, x):
+    """``pairwise_l2`` against its plain version on ``q`` × ``x``:
+    ``|Δd²| ≤ 1e-5·(‖q‖²+‖x‖²)`` per entry.  Returns max |Δd²|."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.l2 import pairwise_l2_plain
+    assert not torch.backends.cuda.matmul.allow_tf32
+    d_k = ops.pairwise_l2(q, x)
+    d_p = pairwise_l2_plain(q, x)
+    tol = 1e-5 * ((q * q).sum(-1, keepdim=True) + (x * x).sum(-1)[None, :])
+    err = (d_k - d_p).abs()
+    if bool((err > tol).any()):
+        raise SystemExit(f"{label}: |Δd²| {float(err.max())} exceeds "
+                         f"1e-5·(‖q‖²+‖x‖²)")
+    return float(err.max())
+
+
+def plain_exact_knn(queries, data, k, chunk=SCAN_CHUNK):
+    """Dss through ``pairwise_l2``'s plain version, a running top-k over
+    ``chunk``-row slices: ``(d² [Q, k], row ids)``.  The reference that
+    checks kernel answers independently of every kernel."""
+    import torch
+    from repro_torch.kernels.l2 import pairwise_l2_plain
+    from repro_torch.kernels.refine_topk import topk_flat
+    best_d = best_i = None
+    for a in range(0, data.shape[0], chunk):
+        d2 = pairwise_l2_plain(queries, data[a:a + chunk])
+        ids = torch.arange(a, a + d2.shape[1], dtype=torch.int32,
+                           device=d2.device).expand_as(d2)
+        if best_d is not None:
+            d2, ids = torch.cat([best_d, d2], 1), torch.cat([best_i, ids], 1)
+        best_d, best_i = topk_flat(d2, ids, k)
+    return best_d, best_i
 
 
 def evaluate_dataset(name, data, queries, index, gt_cache, meta, cfg, gen):
@@ -258,51 +323,352 @@ def plain_refine_chunked(store, qs, sp, lo, hi, k, budget=4e9):
     return torch.cat(out_d), torch.cat(out_g), live_w
 
 
-def fleet_refine_checks(fleet, qs, k) -> dict:
-    """``refine_topk`` against its plain version at two of the fleet
-    path's shapes: shard 0's stacked-pass plan (the pass's padded plan
-    width, over the shard's own store) and ``scan_exact``'s exhaustive
-    refine over the union store.  Launched after the fleet path's counts
-    are read, so these launches are not counted."""
+def refine_plan_checks(path, qs, k, cases) -> dict:
+    """``refine_topk`` against its plain version on each ``(label, store,
+    (sel_part, sel_lo, sel_hi))`` of ``cases``, the plan sorted by
+    partition as the kernel's wrapper sorts it (stable, pads first).  Run
+    after the path's launch counts are read, so these launches are not
+    counted.  Returns one row per case."""
     import torch
-    from repro_torch.core.query import exhaustive_selection
-    from repro_torch.kernels import ops
     from repro_torch.kernels.refine_topk import refine_topk
-
-    def by_partition(*plan):
-        order = torch.argsort(plan[0], dim=-1, stable=True)
-        return [torch.gather(t, 1, order).to(torch.int32).contiguous() for t in plan]
-
-    pl = fleet._ensure_placement()
-    shard = fleet.shards[0]
-    qp = pl.plan_shard(0, ops.paa(qs, fleet.cfg.shard_cfg.paa_segments), "adaptive")
-    union = fleet._union_store()
-    cases = (("stacked pass, shard " + shard.key, shard.index.store,
-              by_partition(qp.sel_part, qp.sel_lo, qp.sel_hi)),
-             ("scan_exact union", union,
-              exhaustive_selection(union.num_partitions, qs.shape[0], qs.device)))
     out = {}
-    for label, store, (sp, lo, hi) in cases:
-        sp, lo, hi = (t.contiguous() for t in (sp, lo, hi))
+    for label, store, plan in cases:
+        order = torch.argsort(plan[0], dim=-1, stable=True)
+        sp, lo, hi = (torch.gather(t, 1, order).to(torch.int32).contiguous()
+                      for t in plan)
         (d2_k, g_k), secs = sync_wall(lambda: refine_topk(
             store.data, store.norms, store.rec_dfs, store.rec_gid, qs, sp, lo, hi, k))
         d2_p, g_p, live_w = plain_refine_chunked(store, qs, sp, lo, hi, k)
         tol = 1e-5 * ((qs * qs).sum(-1, keepdim=True) + float(store.norms.max()))
-        err, differ = assert_same_topk(f"refine_topk [fleet {label}]", d2_k, g_k,
+        err, differ = assert_same_topk(f"refine_topk [{path} {label}]", d2_k, g_k,
                                        d2_p, g_p, tol)
-        out[label] = {"P": store.num_partitions, "cap": store.capacity,
-                      "mp": sp.shape[1], "live_width": live_w, "max_abs_err": err,
-                      "gid_queries_differ": differ, "kernel_s": secs}
-        say(f"refine_topk [fleet {label}]: max |Δd²| {err:.3g}; {differ} of "
+        out[label] = {"Q": qs.shape[0], "P": store.num_partitions,
+                      "cap": store.capacity, "mp": sp.shape[1], "live_width": live_w,
+                      "max_abs_err": err, "gid_queries_differ": differ,
+                      "kernel_s": secs}
+        say(f"refine_topk [{path} {label}]: max |Δd²| {err:.3g}; {differ} of "
             f"{qs.shape[0]} queries differ in gid order at near-ties; "
             + json.dumps(out[label], default=float))
         del d2_p, g_p
     return out
 
 
-def fleet_path(args, dev, cfg, report) -> dict:
-    """The fleet path (module docstring, item 3).  Every hard check raises.
-    Returns the fleet path's launch counts."""
+def host_plan(index, qs, variant):
+    """The host loop's plan of ``qs`` on one index: featurize, then the
+    ``variant`` planner (``IndexFleet._query_sealed_host``)."""
+    from repro_torch.core.query import plan
+    qp = plan(index, index.featurize(qs)[0], variant=variant)
+    return qp.sel_part, qp.sel_lo, qp.sel_hi
+
+
+def fleet_refine_checks(fleet, qs, k) -> dict:
+    """``refine_topk`` at two of the fleet path's shapes: shard 0's
+    stacked-pass plan (the pass's padded plan width, over the shard's own
+    store) and ``scan_exact``'s exhaustive refine over the union store."""
+    from repro_torch.core.query import exhaustive_selection
+    from repro_torch.kernels import ops
+    pl = fleet._ensure_placement()
+    qp = pl.plan_shard(0, ops.paa(qs, fleet.cfg.shard_cfg.paa_segments), "adaptive")
+    union = fleet._union_store()
+    return refine_plan_checks("fleet", qs, k, (
+        ("stacked pass, shard " + fleet.shards[0].key, fleet.shards[0].index.store,
+         (qp.sel_part, qp.sel_lo, qp.sel_hi)),
+        ("scan_exact union", union,
+         exhaustive_selection(union.num_partitions, qs.shape[0], qs.device))))
+
+
+def net_refine_checks(fleet, qs, k) -> dict:
+    """``refine_topk`` at the net path's shapes: a socket tick's few rows
+    over every sealed shard's stacked-pass plan and over the live delta
+    (its one-partition bootstrap store, or its own index's plan)."""
+    import torch
+    from repro_torch.kernels import ops
+    pl = fleet._ensure_placement()
+    z = ops.paa(qs, fleet.cfg.shard_cfg.paa_segments)
+    cases = []
+    for j, shard in enumerate(fleet.shards):
+        qp = pl.plan_shard(j, z, "adaptive")
+        cases.append((f"stacked pass, shard {shard.key}", shard.index.store,
+                      (qp.sel_part, qp.sel_lo, qp.sel_hi)))
+    delta = fleet.delta
+    if delta.occupancy:
+        if delta.index is None:
+            sel = torch.zeros((qs.shape[0], 1), dtype=torch.int32, device=qs.device)
+            cases.append(("delta", delta.store(), (sel, sel, sel + 1)))
+        else:
+            cases.append(("delta", delta.index.store,
+                          host_plan(delta.index, qs, "adaptive")))
+    return refine_plan_checks("net", qs, k, cases)
+
+
+def serve_queue(eng, q_np, k):
+    """``q_np`` through the engine's queue (``submit_request`` then one
+    ``step`` per tick, so ``_after_tick`` runs); returns (dist, gid, host ms
+    of each tick)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import QueryRequest
+    tickets = [eng.submit_request(QueryRequest(series=q, k=k, request_id=i))
+               for i, q in enumerate(q_np)]
+    ticks = []
+    while eng.queue:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        ticks.append((time.perf_counter() - t) * 1e3)
+    if not all(t.ok for t in tickets):
+        raise SystemExit("fleet: a queued request was not answered")
+    return (np.stack([t.result.dist for t in tickets]),
+            np.stack([t.result.gid for t in tickets]), ticks)
+
+
+def sentinel_check(fleet, union, q_np, k, bs) -> dict:
+    """The online recall sentinel on the fleet path's traffic: the 256
+    queries through ``FleetEngine`` with the sentinel off, then on
+    (``sentinel_rate=0.05``, recalibration every 4 audits; two audits after
+    each tick), then ``drain()``.  Hard checks: answers bit-equal on and
+    off; the audits are the samples that the sentinel's seeded RNG draws
+    from the batches handed to ``observe``, and their mean recall equals
+    ``recall_at_k`` of those served answers against Dss over ``union``
+    (the fleet's rows in global-id order) through the plain
+    ``pairwise_l2``."""
+    import numpy as np
+    import torch
+    from repro_torch.eval import recall_at_k
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.obs import REGISTRY
+
+    kw = dict(batch_size=bs, k=k, routing="signature", fanout=2,
+              variant="adaptive", placement="mesh")
+    serve_queue(FleetEngine(fleet, **kw), q_np, k)     # every plan cached
+    d_off, g_off, ticks_off = serve_queue(FleetEngine(fleet, **kw), q_np, k)
+    rate = 0.05
+    eng = FleetEngine(fleet, sentinel_rate=rate, sentinel_recalibrate_every=4, **kw)
+    sentinel, batches = eng.sentinel, []
+    observe = sentinel.observe
+
+    def keep(queries, k_, dist, gid):     # every batch the fleet hands over
+        batches.append((queries.copy(), dist.copy(), gid.copy()))
+        observe(queries, k_, dist, gid)
+
+    sentinel.observe = keep
+    span_hist = REGISTRY.histogram("span.sentinel.audit")
+    span_hist.reset()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        d_on, g_on, ticks_on = serve_queue(eng, q_np, k)
+        in_ticks = sentinel.snapshot()["audits"]
+        pending = sentinel.pending()
+        (drained, drain_s) = sync_wall(sentinel.drain)
+    finally:
+        fleet.sentinel = None
+    if not (np.array_equal(d_on, d_off) and np.array_equal(g_on, g_off)):
+        raise SystemExit("sentinel: served answers differ with the sentinel on")
+    snap = sentinel.snapshot()
+    # the samples: the sentinel's RNG (FleetEngine's seed 0) over the batches
+    rng = np.random.default_rng(0)
+    picks = [(q[i], d[i], g[i]) for q, d, g in batches
+             for i in np.nonzero(rng.random(len(q)) < rate)[0]]
+    if not picks or snap["audits"] != len(picks):
+        raise SystemExit(f"sentinel: {snap['audits']} audits for {len(picks)} "
+                         f"sampled queries")
+    q_s, d_s, g_s = (np.stack(x) for x in zip(*picks))
+    t_d2, t_i = plain_exact_knn(torch.as_tensor(q_s, device=union.device), union, k)
+    t_d = torch.sqrt(t_d2).cpu().numpy()
+    t_i = t_i.cpu().numpy()
+    total = 0.0
+    for i in range(len(picks)):           # the sentinel's running sum, in order
+        total += recall_at_k(g_s[i:i + 1], t_i[i:i + 1], k, approx_dist=d_s[i:i + 1],
+                             exact_dist=t_d[i:i + 1])
+    if total / len(picks) != snap["online_recall"]:
+        raise SystemExit(f"sentinel: online recall {snap['online_recall']} != "
+                         f"{total / len(picks)} against the plain Dss")
+    out = {"sample_rate": rate, "recalibrate_every": 4, "queries": len(q_np),
+           "audits": snap["audits"],
+           "audits_in_ticks": in_ticks, "pending_after_ticks": pending,
+           "drained": drained, "online_recall": snap["online_recall"],
+           "last_threshold": snap["last_threshold"],
+           "audit_ms_mean": span_hist.sum / span_hist.count,
+           "audit_ms_p50": span_hist.quantile(0.5),
+           "audit_ms_max": span_hist.quantile(1.0),
+           "drain_ms_per_audit": drain_s * 1e3 / max(drained, 1),
+           "tick_ms_off": float(np.mean(ticks_off)),
+           "tick_ms_on": float(np.mean(ticks_on)),
+           "tick_ms_on_max": float(np.max(ticks_on)),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    say("fleet sentinel: " + json.dumps(out, default=float)
+        + "; answers bit-equal with the sentinel on and off; the audited "
+        "queries are the seeded draws and their mean recall == recall_at_k "
+        "against the plain Dss")
+    return out
+
+
+def net_client(port, queries, k, name, pipelined, ready, go, out) -> None:
+    """One client process of the net path: connect, report ready, wait for
+    ``go``, then send ``queries`` as one pipelined ``query_batch`` (resent
+    whole on ``RetryLater``) or one at a time (each retried on
+    ``RetryLater``).  Puts its answers, per-request round trips (what its
+    ``net.rtt_ms`` histogram observes) and wall-clock window on ``out``."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.serve.net import ClimberClient, RetryLater
+    try:
+        with ClimberClient("127.0.0.1", port, client_name=name, timeout=300) as c:
+            ready.put(name)
+            if not go.wait(timeout=600):
+                raise TimeoutError("no go signal")
+            got, rtt, refused = [], [], 0
+            begin = time.time()
+            for batch in ([list(queries)] if pipelined else [[q] for q in queries]):
+                while True:
+                    t = time.perf_counter()
+                    try:
+                        replies = c.query_batch(batch, k=k)
+                        break
+                    except RetryLater as exc:
+                        refused += 1
+                        time.sleep(max(exc.retry_after_ms, 1.0) / 1e3)
+                rtt.append((time.perf_counter() - t) * 1e3 / len(batch))
+                got += replies
+            out.put({"name": name, "begin": begin, "end": time.time(),
+                     "dist": np.stack([r.dist for r in got]),
+                     "gid": np.stack([r.gid for r in got]),
+                     "rtt_ms": rtt, "retry_later": refused})
+    except Exception as exc:          # reported to the parent, which fails
+        ready.put(name)
+        out.put({"name": name, "error": f"{type(exc).__name__}: {exc}"})
+
+
+def net_path(fleet, q_np, k, bs, report) -> dict:
+    """The network plane on the fleet path's fleet (module docstring, item
+    4).  The clients run in processes of their own, as a deployment's
+    would.  Every hard check raises.  Returns the path's launch counts,
+    read after the server stopped and before the reference answers are
+    computed."""
+    import multiprocessing
+    import numpy as np
+    import torch
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.kernels import ops
+    from repro_torch.obs import REGISTRY
+    from repro_torch.obs.registry import Histogram
+    from repro_torch.serve.net import ClimberClient, serve_in_thread
+
+    out = report.setdefault("net", {})
+    ctx = multiprocessing.get_context("spawn")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    eng = FleetEngine(fleet, batch_size=bs, k=k, routing="signature", fanout=2)
+    # admission sized for the whole pipelined batch (no refusal possible)
+    server, stop = serve_in_thread(eng, config=eng.config.replace(
+        max_pending=len(q_np), admission_depth=len(q_np)))
+    rejected0 = REGISTRY.counter("net.rejected").value
+    answers, phases = {}, {}
+
+    def run_clients(label, specs):
+        """Start one process per (name, rows, pipelined), release them
+        together, collect their results; every process is joined."""
+        ready, go, results = ctx.Queue(), ctx.Event(), ctx.Queue()
+        procs = [ctx.Process(target=net_client, daemon=True, args=(
+            server.port, q_np[rows], k, name, pipe, ready, go, results))
+            for name, rows, pipe in specs]
+        ticks0, tick_s0, got = eng.stats.ticks, eng.stats.total_s, []
+        try:
+            for proc in procs:
+                proc.start()
+            for _ in procs:
+                ready.get(timeout=300)
+            go.set()
+            got = [results.get(timeout=600) for _ in procs]
+        finally:
+            for proc in procs:
+                proc.join(timeout=60)
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(timeout=10)
+        errors = [r["error"] for r in got if "error" in r]
+        if errors or len(got) != len(procs):
+            raise SystemExit(f"net: {label} clients failed: {errors}")
+        by_name = {r["name"]: r for r in got}
+        for name, rows, _ in specs:
+            for j, i in enumerate(rows):
+                answers[label, int(i)] = (by_name[name]["dist"][j],
+                                          by_name[name]["gid"][j])
+        hist = Histogram()
+        for r in got:
+            for v in r["rtt_ms"]:
+                hist.observe(v)
+        secs = max(r["end"] for r in got) - min(r["begin"] for r in got)
+        ticks = eng.stats.ticks - ticks0
+        nq = sum(len(rows) for _, rows, _ in specs)
+        phases[label] = {"clients": len(specs), "queries": nq, "seconds": secs,
+                         "qps": nq / secs, "ticks": ticks,
+                         "mean_batch_fill": nq / (ticks * bs) if ticks else 0.0,
+                         "tick_ms_mean": (eng.stats.total_s - tick_s0) * 1e3 / ticks
+                         if ticks else 0.0,
+                         "client_rtt_ms_p50": hist.quantile(0.5),
+                         "client_rtt_ms_p99": hist.quantile(0.99),
+                         "client_retries": sum(r["retry_later"] for r in got)}
+
+    try:
+        idx = np.arange(len(q_np))
+        run_clients("pipelined", [("smoke-pipelined", idx, True)])
+        run_clients("concurrent", [(f"smoke-client{w}", idx[w::4], False)
+                                   for w in range(4)])
+        with ClimberClient("127.0.0.1", server.port, client_name="smoke-admin",
+                           timeout=300) as c:
+            page, traces, health = c.metrics(), c.traces(), c.health()
+        lat = REGISTRY.histogram("serve.latency_ms", loop=eng.obs_label)
+        out.update({
+            "queries": 2 * len(q_np), "batch_size": bs, "max_pending": len(q_np),
+            "admission_depth": len(q_np),
+            "flush_interval_ms": eng.config.flush_interval_ms, "phases": phases,
+            "serve_latency_ms_p50": lat.quantile(0.5),
+            "serve_latency_ms_p99": lat.quantile(0.99),
+            "overlap_admissions": server.overlap_admissions,
+            "retry_later_replies": REGISTRY.counter("net.rejected").value - rejected0,
+            "health": health, "flight_traces": len(traces),
+            "metrics_page_bytes": len(page)})
+    finally:
+        stop()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if server._exec_thread.is_alive() or server._pending:
+        raise SystemExit(f"net: server did not drain ({server._pending} pending)")
+    for series in ("repro_fleet_online_recall", "repro_net_queries_total",
+                   "repro_net_connections_total", "repro_net_frames_in_total"):
+        if series not in page:
+            raise SystemExit(f"net: the metrics page has no {series}")
+    if health["ready"] != 1 or health["shards"] != len(fleet.shards):
+        raise SystemExit(f"net: bad health card {health}")
+    d_ref, g_ref = [], []
+    for a in range(0, len(q_np), bs):
+        d, g, _ = fleet.query(q_np[a:a + bs], k, routing="signature", fanout=2,
+                              variant="adaptive")
+        d_ref.append(d)
+        g_ref.append(g)
+    d_ref, g_ref = np.concatenate(d_ref), np.concatenate(g_ref)
+    if len(answers) != 2 * len(q_np):
+        raise SystemExit(f"net: {len(answers)} answers for {2 * len(q_np)} queries")
+    for (label, i), (d, g) in answers.items():
+        if not (np.array_equal(d, d_ref[i]) and np.array_equal(g, g_ref[i])):
+            raise SystemExit(f"net: {label} answer {i} differs from IndexFleet.query")
+    out["launches"] = launches
+    say("net: " + json.dumps(out, default=float) + f"; {len(answers)} socket answers "
+        "bit-equal to IndexFleet.query; the server drained and stopped")
+    say(f"net-path launches: {launches}")
+    missing = [name for name in FLEET_KERNELS if launches[name] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the net path: {missing}")
+    out["refine_checks"] = net_refine_checks(
+        fleet, torch.as_tensor(q_np[:2], device=fleet.device), k)
+    return launches
+
+
+def fleet_path(args, dev, cfg, report):
+    """The fleet path (module docstring, item 3), then the network path on
+    its fleet (item 4).  Every hard check raises.  Returns the two paths'
+    launch counts."""
     import numpy as np
     import torch
     from repro_torch.baselines import exact_knn
@@ -412,7 +778,12 @@ def fleet_path(args, dev, cfg, report) -> dict:
                     "dss_s": dss_s}
     say(f"fleet: exhaustive fan-out == scan_exact (max |Δd²| {e1:.3g}, {n1} queries "
         f"reorder at ties) == Dss (max |Δd²| {e2:.3g}, {n2} queries) on {bs} queries")
-    del union, d_ss, i_ss
+    del d_ss, i_ss
+
+    # ---- the online recall sentinel on the same traffic ----------------
+    peak_pre = torch.cuda.max_memory_allocated()       # the sentinel resets it
+    out["sentinel"] = sentinel_check(fleet, union, q_np, k, bs)
+    del union
 
     # ---- ingest under load: WAL, background seals, ticks ---------------
     (ROOT / "build").mkdir(exist_ok=True)
@@ -511,16 +882,207 @@ def fleet_path(args, dev, cfg, report) -> dict:
         launches = ops.launch_counts()
         out["launches"] = launches
         out["seconds"] = time.perf_counter() - t_path
-        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["peak_memory_gb"] = max(peak_pre, torch.cuda.max_memory_allocated()) / 1e9
         say(f"fleet-path launches: {launches} ({out['seconds']:.1f} s, peak device "
             f"memory {out['peak_memory_gb']:.1f} GB)")
         missing = [name for name in FLEET_KERNELS if launches[name] <= 0]
         if missing:
             raise SystemExit(f"kernels not launched on the fleet path: {missing}")
         out["refine_checks"] = fleet_refine_checks(fleet, q64, k)
-        out["peak_memory_gb_with_checks"] = torch.cuda.max_memory_allocated() / 1e9
+        out["peak_memory_gb_with_checks"] = max(
+            peak_pre, torch.cuda.max_memory_allocated()) / 1e9
+        fleet.query = fleet_query
+        net_launches = net_path(fleet, q_np, k, bs, report)
     finally:
         shutil.rmtree(storage, ignore_errors=True)
+    return launches, net_launches
+
+
+def frontier_path(args, dev, cfg, report) -> dict:
+    """The recall frontier (module docstring, item 5): ``run_frontier`` at
+    ``ClimberConfig()`` over two datasets at 1 and 4 shards, then its hard
+    checks, the last of which re-answers the seismic × 4 sweep's queries
+    through a fresh evaluation fleet with exhaustive routing and the
+    exhaustive planner against Dss through the plain ``pairwise_l2``, and
+    holds both kernels the sweep's queries and ground truth ran through
+    against their plain versions at the sweep's shapes.  Every hard check
+    raises.  Returns the path's launch counts (read before those checks)."""
+    import dataclasses
+    import inspect
+    import numpy as np
+    import torch
+    from repro_torch.core.query import register_recall_target
+    from repro_torch.eval import (FrontierSpec, GroundTruthCache, build_eval_fleet,
+                                  perturbed_queries, tenant_corpus)
+    from repro_torch.kernels import ops
+
+    class SmokeFrontierSpec(FrontierSpec):
+        """The sweep at the paper's configuration: every shard is
+        ``ClimberConfig()`` (the package's spec keeps the JAX package's
+        small shard config)."""
+
+        def shard_cfg(self):
+            return cfg
+
+    spec = SmokeFrontierSpec(
+        datasets=("randomwalk", "seismic"), shard_counts=(1, 4),
+        shard_size=args.frontier_shard, series_len=cfg.series_len,
+        num_queries=EVAL_QUERIES, num_calibration=32, k=cfg.k, seed=args.seed)
+    out = report.setdefault("frontier", {"spec": dataclasses.asdict(spec)})
+    (ROOT / "build").mkdir(exist_ok=True)
+    gt_dir = Path(tempfile.mkdtemp(prefix="smoke_frontier_gt_", dir=ROOT / "build"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        from repro_torch.eval import run_frontier
+        t = time.perf_counter()
+        doc = run_frontier(spec, cache_dir=gt_dir, device=dev,
+                           progress=lambda m: say(f"frontier: {m} "
+                                                  f"({time.perf_counter() - t:.1f} s)"))
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        out["seconds"] = time.perf_counter() - t
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["ground_truth_cache"] = doc["ground_truth_cache"]
+        cells = doc["cells"]
+        out["cells"], out["frontiers"], out["routed_gap"] = \
+            cells, doc["frontiers"], doc["routed_gap"]
+        say(f"frontier-path launches: {launches} ({out['seconds']:.1f} s, peak "
+            f"device memory {out['peak_memory_gb']:.1f} GB)")
+        missing = [name for name in FLEET_KERNELS + ("pairwise_l2",)
+                   if launches[name] <= 0]
+        if missing:
+            raise SystemExit(f"kernels not launched on the frontier path: {missing}")
+
+        # ---- report: per dataset and shard count -------------------------
+        for ds in spec.datasets:
+            for shards in spec.shard_counts:
+                total = shards * spec.shard_size
+                mine = [c for c in cells if c.get("dataset") == ds
+                        and c.get("shards") == shards and "recall" in c]
+                row = {"learned": [c["param"] for c in mine
+                                   if c["param"].startswith("learned=")][:1],
+                       "spend": {c["param"]: {"recall": c["recall"],
+                                              "frac_scanned": c["mean_candidates_scanned"]
+                                              / total,
+                                              "partitions": c["mean_partitions_touched"]}
+                                 for c in mine if c["variant"] == "recall_target"
+                                 and c["split"] == "all"},
+                       "slot_budget": {c["slot_budget"]: {
+                           "recall": c["recall"],
+                           "partitions": c["mean_partitions_touched"]}
+                           for c in mine if c["slot_budget"] and c["split"] == "all"},
+                       "exhaustive_routing_recall": {
+                           c["split"]: c["recall"] for c in mine
+                           if c["routing"] == "exhaustive" and c["param"] == "-"
+                           and not c["slot_budget"]},
+                       "auc": {f["split"]: {"fixed": f["fixed_auc"],
+                                            "adaptive": f["adaptive_auc"]}
+                               for f in doc["frontiers"] if f["dataset"] == ds
+                               and f["shards"] == shards},
+                       "routed_gap": [
+                           {a: g[a] for a in ("split", "param", "frac_scanned",
+                                              "adaptive_recall", "fixed_recall_at_cost",
+                                              "improvement")}
+                           for g in doc["routed_gap"] if g["dataset"] == ds
+                           and g["shards"] == shards and g["split"] == "all"]}
+                say(f"frontier[{ds} x {shards}]: " + json.dumps(row, default=float))
+
+        # ---- hard checks on the cells --------------------------------------
+        for c in cells:
+            if "recall" not in c:
+                continue
+            if not (0.0 <= c["recall"] <= 1.0 and np.isfinite(c["map"])):
+                raise SystemExit(f"frontier: malformed cell {c}")
+            if c["slot_budget"] and \
+                    c["mean_partitions_touched"] > c["slot_budget"] * c["shards"]:
+                raise SystemExit(f"frontier: slot budget {c['slot_budget']} touched "
+                                 f"{c['mean_partitions_touched']} partitions")
+        for exh in (c for c in cells if c.get("routing") == "exhaustive"
+                    and c.get("param") == "-" and c.get("slot_budget") == 0):
+            routed = [c for c in cells if "routing" in c and c["routing"] != "exhaustive"
+                      and (c["dataset"], c["shards"], c["split"])
+                      == (exh["dataset"], exh["shards"], exh["split"])]
+            over = [c for c in routed
+                    if c["mean_candidates_scanned"] > exh["mean_candidates_scanned"]]
+            if over:
+                raise SystemExit(f"frontier: routed cells scan more than exhaustive "
+                                 f"routing: {over}")
+        say("frontier: exhaustive routing scans at least as much as every routed "
+            "cell; every slot budget b keeps to at most b x shards partitions")
+
+        # ---- the exhaustive ceiling ≡ the plain Dss ------------------------
+        # seismic x 4 again, outside the counts: its first Dss chunk through
+        # pairwise_l2 and its plain version, the sweep's cached ground truth
+        # and a fresh fleet's exhaustive answers against Dss through the
+        # plain pairwise_l2, and refine_topk against its plain version on
+        # shard 0's exhaustive and spend-4 plans
+        ds, shards, k = "seismic", 4, spec.k
+        corpus = tenant_corpus(ds, num_shards=shards, shard_size=spec.shard_size,
+                               series_len=spec.series_len, seed=spec.seed,
+                               affinity=spec.affinity, device=dev)
+        qs = perturbed_queries(corpus, spec.num_queries, noise=spec.noise,
+                               seed=spec.seed)
+        meta = dict(corpus.meta(), num_queries=spec.num_queries, noise=spec.noise,
+                    qseed=spec.seed)
+        cached = GroundTruthCache(gt_dir).get(dict(meta, k=2 * k))
+        if cached is None:
+            raise SystemExit("frontier: the sweep's ground truth is not in its cache")
+        union = corpus.union
+        # the rows of one Dss launch of the sweep's ground truth
+        chunk = union[:inspect.signature(GroundTruthCache.exact).parameters["chunk"].default]
+        l2_err = l2_check("pairwise_l2 [frontier Dss chunk]", qs, chunk)
+        out["l2_check"] = {"shape": f"[{qs.shape[0]},{qs.shape[1]}] x "
+                                    f"[{chunk.shape[0]},{chunk.shape[1]}]",
+                           "max_abs_err": l2_err}
+        say(f"pairwise_l2 [frontier Dss chunk]: max |Δd²| {l2_err:.3g} over "
+            f"{out['l2_check']['shape']}")
+        p_d2, p_i = plain_exact_knn(qs, union, 2 * k)
+        tol = 1e-5 * ((qs.double() ** 2).sum(-1, keepdim=True)
+                      + float((union * union).sum(-1).max()))
+        del union, chunk
+        fleet = build_eval_fleet(corpus, spec, device=dev)
+        del corpus
+        sq = lambda d: torch.as_tensor(d, device=dev).double() ** 2
+        gi = lambda g: torch.as_tensor(g, device=dev)
+        gt_err, gt_tie = assert_same_topk("frontier cached Dss vs plain Dss",
+                                          sq(cached[0]), gi(cached[1]),
+                                          p_d2.double(), p_i, tol)
+        q_np = qs.cpu().numpy()
+        d_ex, g_ex, info = fleet.query(q_np, k, routing="exhaustive",
+                                       variant="exhaustive")
+        err, n_tie = assert_same_topk("frontier exhaustive ceiling vs plain Dss",
+                                      sq(d_ex), gi(g_ex), p_d2[:, :k].double(),
+                                      p_i[:, :k], tol)
+        _, _, info_a = fleet.query(q_np, k, routing="exhaustive")
+        exh_all = next(c for c in cells if (c.get("dataset"), c.get("shards"),
+                                           c.get("split"), c.get("routing"),
+                                           c.get("param"), c.get("slot_budget"))
+                       == (ds, shards, "all", "exhaustive", "-", 0))
+        if float(info_a.candidates_scanned.mean()) != exh_all["mean_candidates_scanned"]:
+            raise SystemExit("frontier: a fresh fleet scans differently from the sweep's")
+        out["exhaustive_ceiling"] = {"max_abs_err": err, "gid_queries_differ": n_tie,
+                                     "cached_gt_max_abs_err": gt_err,
+                                     "cached_gt_gid_queries_differ": gt_tie,
+                                     "candidates_scanned": float(
+                                         info.candidates_scanned.mean())}
+        say(f"frontier: seismic x 4, the sweep's cached Dss (2k = {2 * k}) == Dss "
+            f"through the plain pairwise_l2 (max |Δd²| {gt_err:.3g}, {gt_tie} queries "
+            f"reorder at ties); exhaustive routing + exhaustive planner == the plain "
+            f"Dss (max |Δd²| {err:.3g}, {n_tie} of {len(q_np)} queries reorder at "
+            f"k-th-distance ties); a fresh fleet scans as the sweep did")
+        del p_d2, p_i
+        h = fleet.shards[0]
+        register_recall_target(4.0)
+        out["refine_checks"] = refine_plan_checks("frontier", qs, k, [
+            (f"{label}, shard {h.key}", h.index.store, host_plan(h.index, qs, variant))
+            for label, variant in (("exhaustive", "exhaustive"),
+                                   ("spend 4", "recall_target"))])
+        del fleet
+    finally:
+        shutil.rmtree(gt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -536,6 +1098,8 @@ def main(argv=None) -> int:
                     help="series in each of the tenant corpus's 4 shards")
     ap.add_argument("--fleet-shard", type=int, default=1_048_576,
                     help="series in each of the fleet's 4 tenant shards")
+    ap.add_argument("--frontier-shard", type=int, default=1_048_576,
+                    help="series in each shard of the recall-frontier sweep")
     ap.add_argument("--report", default=None,
                     help="also write the full JSON report to this path")
     args = ap.parse_args(argv)
@@ -990,19 +1554,10 @@ def main(argv=None) -> int:
         row["path"] = "serve"
 
     # pairwise_l2 on one Dss chunk: 64 queries x 2^20 series
-    assert not torch.backends.cuda.matmul.allow_tf32
     x_c = data[:SCAN_CHUNK]
     c_n = x_c.shape[0]
-    d_k = ops.pairwise_l2(q64, x_c)
-    d_p = pairwise_l2_plain(q64, x_c)
-    tol = 1e-5 * (q2v + (x_c * x_c).sum(-1)[None, :])
-    l2_err = (d_k - d_p).abs()
-    if bool((l2_err > tol).any()):
-        raise SystemExit(f"pairwise_l2: |Δd²| {float(l2_err.max())} exceeds "
-                         f"1e-5·(‖q‖²+‖x‖²)")
-    l2_err = float(l2_err.max())
+    l2_err = l2_check("pairwise_l2", q64, x_c)
     say(f"pairwise_l2: max |Δd²| {l2_err:.3g} over [64, {c_n}] (n={n})")
-    del d_k, d_p, tol
     bms, bby = bound_ms(4 * (c_n * n + 64 * n + 64 * c_n), 2 * 64 * c_n * n)
     kernels.append({
         "name": "pairwise_l2", "route": "cuda", "source": "src/repro_torch/csrc/l2.cu",
@@ -1070,15 +1625,28 @@ def main(argv=None) -> int:
     del main_plan, d_dn, g_dn, d_fu, g_fu, qq
     torch.cuda.empty_cache()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9       # serve + eval + kernels
-    fleet_launches = fleet_path(args, dev, cfg, report)
+    fleet_launches, net_launches = fleet_path(args, dev, cfg, report)
+    peak_gb = max(peak_gb, report["fleet"]["peak_memory_gb_with_checks"])
+    torch.cuda.empty_cache()
+
+    # ---- recall frontier, launch counts zeroed (the fleet is gone) -------
+    frontier_launches = frontier_path(args, dev, cfg, report)
+    peak_gb = max(peak_gb, report["frontier"]["peak_memory_gb"])
+    # the paths' own shapes, checked against the plain versions after each
+    # path's counts were read: their errors join the kernel rows
     for row in kernels:
         if row["name"] == "refine_topk":
-            row["fleet_plans"] = report["fleet"]["refine_checks"]
-            row["max_abs_err"] = max([row["max_abs_err"]] + [
-                c["max_abs_err"] for c in row["fleet_plans"].values()])
-    peak_gb = max(peak_gb, report["fleet"]["peak_memory_gb_with_checks"])
+            for path in ("fleet", "net", "frontier"):
+                row[f"{path}_plans"] = report[path]["refine_checks"]
+                row["max_abs_err"] = max([row["max_abs_err"]] + [
+                    c["max_abs_err"] for c in row[f"{path}_plans"].values()])
+        if row["name"] == "pairwise_l2":
+            row["frontier_chunk"] = report["frontier"]["l2_check"]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     row["frontier_chunk"]["max_abs_err"])
     say(f"peak device memory of the smoke: {peak_gb:.1f} GB")
-    by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches}
+    by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches,
+               "net": net_launches, "frontier": frontier_launches}
     for row in kernels:
         row["launches_by_path"] = {p_: c[row["name"]] for p_, c in by_path.items()}
 

@@ -1,11 +1,15 @@
-"""Recall-targeted planning: a measured partitions→recall curve.
+"""Recall-targeted planning: "spend slots until predicted recall ≥ X".
 
-:class:`RecallCalibration` turns frontier measurements into a monotone
-partitions-touched → recall curve and answers how many partitions a recall
-target needs; ``repro_torch.core.query.register_recall_target`` registers a
-planner that spends that much more.  The JAX package's
-``install_recall_target`` reads a fleet's live partitions-touched histogram
-and bumps its placement epoch, so it waits for the fleet slice.
+The port of ``repro/eval/target.py``.  :class:`RecallCalibration` turns
+frontier measurements into a monotone partitions-touched → recall curve;
+given a live fleet, :func:`install_recall_target` reads the *actual*
+per-query touch distribution from the ``fleet.partitions_touched``
+histogram (``IndexFleet.touched_hist``), asks the curve how many partitions
+the recall target needs, and registers a
+:func:`~repro_torch.core.query.make_recall_target_planner` variant (host and
+device planners) whose spend factor closes the gap.  Re-installation with a
+new target re-registers the variant and bumps the fleet's placement epoch,
+so no cached plan of the old variant can serve.
 """
 from __future__ import annotations
 
@@ -14,7 +18,9 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["RecallCalibration"]
+from repro_torch.core.query import register_recall_target
+
+__all__ = ["RecallCalibration", "install_recall_target"]
 
 
 @dataclass(frozen=True)
@@ -52,3 +58,27 @@ class RecallCalibration:
             if r >= target_recall:
                 return p
         return self.partitions[-1]
+
+
+def install_recall_target(fleet, target_recall: float,
+                          calibration: RecallCalibration, *,
+                          name: str = "recall_target",
+                          max_spend: float = 8.0) -> float:
+    """Register a planner variant sized to hit ``target_recall`` on
+    ``fleet``; returns the chosen spend factor.
+
+    The current operating point is the fleet's live per-query
+    partitions-touched median (``fleet.touched_hist``, fed by every
+    ``IndexFleet.query``); with an empty histogram the calibration curve's
+    smallest budget stands in.  The spend factor is the ratio of the
+    partitions the target needs to the partitions spent now, clamped to
+    ``[1, max_spend]``.
+    """
+    live_p50 = fleet.touched_hist.quantile(0.5)
+    current = live_p50 if live_p50 > 0 else calibration.partitions[0]
+    needed = calibration.partitions_for(target_recall)
+    spend = min(max(needed / max(current, 1e-9), 1.0), max_spend)
+    register_recall_target(spend, name=name)
+    with fleet._lock:
+        fleet._invalidate_placement()   # cached plans key on the epoch
+    return spend

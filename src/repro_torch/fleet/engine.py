@@ -10,8 +10,9 @@ The engine also drives the fleet's lifecycle plane: every
 ``maintenance_every`` queue ticks it runs :meth:`maintenance` between
 batches (a background compaction when the delta is at capacity, then the
 merge/retirement policy), so index upkeep rides the serving loop without
-blocking a query on an INX rebuild.  The JAX package's online recall
-sentinel (``sentinel_rate``) is not ported yet.
+blocking a query on an INX rebuild.  With ``sentinel_rate > 0`` it also
+installs the online recall sentinel (:class:`repro_torch.obs.RecallSentinel`)
+and audits a couple of its shadow samples after every queue tick.
 """
 from __future__ import annotations
 
@@ -41,9 +42,11 @@ class FleetEngine(BatchedServingLoop):
         (0 = only when called).
       merge_policy: the :class:`~repro_torch.fleet.lifecycle.merge.MergePolicy`
         maintenance applies (None = the fleet's / the policy defaults).
+      sentinel_rate / sentinel_recalibrate_every: the online recall
+        sentinel's sampling rate (0 = off) and its recalibration period.
 
     These may instead arrive bundled in one :class:`api.ServingConfig` via
-    ``config=``.  ``sentinel_rate > 0`` raises NotImplementedError.
+    ``config=``.
     """
 
     _CONFIG_KEYS = ("batch_size", "k", "routing", "variant", "use_kernel",
@@ -58,10 +61,6 @@ class FleetEngine(BatchedServingLoop):
         self.config = scfg
         if scfg.routing not in ("signature", "adaptive", "exhaustive"):
             raise ValueError(f"unknown routing mode {scfg.routing!r}")
-        if scfg.sentinel_rate > 0.0:
-            raise NotImplementedError(
-                "the online recall sentinel (repro/obs/sentinel.py) is not "
-                "ported yet: ROADMAP queue 1 item 9")
         if mesh is not None:
             fleet.attach_mesh(mesh)
         fleet._resolve_placement(scfg.placement)  # fail fast when bad
@@ -79,6 +78,14 @@ class FleetEngine(BatchedServingLoop):
         self.maintenance_every = scfg.maintenance_every
         self.merge_policy = scfg.merge_policy
         self.last_maintenance: dict = {"retired": [], "merged": []}
+        # online recall sentinel: shadow-samples served queries and audits
+        # them exhaustively on the _after_tick hook, off the latency path
+        self.sentinel = None
+        if scfg.sentinel_rate > 0.0:
+            from repro_torch.obs.sentinel import RecallSentinel
+            self.sentinel = RecallSentinel(
+                fleet, sample_rate=scfg.sentinel_rate,
+                recalibrate_every=scfg.sentinel_recalibrate_every)
 
     def tenant_load(self, tenant: str) -> float:
         """The tenant's share of the fleet's per-shard query load
@@ -132,3 +139,8 @@ class FleetEngine(BatchedServingLoop):
         if self.maintenance_every and \
                 self.stats.ticks % self.maintenance_every == 0:
             self.maintenance()
+        if self.sentinel is not None:
+            # audit a couple of shadow samples between batches; queries
+            # land faster than audits drain, so the sentinel's bounded
+            # pending deque (not the serve path) absorbs the difference
+            self.sentinel.drain(max_audits=2)

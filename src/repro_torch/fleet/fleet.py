@@ -27,7 +27,7 @@ Placement — where the sealed shards execute:
     runs featurize → descent → plan → refine → in-order merge for every
     shard with no copy to the host in between.  The port's "mesh" is a
     list of torch devices of length one (multi-GPU placement is ROADMAP
-    queue 1 item 7).  Both placements give the same answers bit for bit:
+    queue 1 item 4).  Both placements give the same answers bit for bit:
     the device planner reproduces the host plans entry for entry, the
     refine is the same kernel over the same store and the merge order is
     the shards' order; the delta is merged last on both.
@@ -61,8 +61,12 @@ Lifecycle plane (``repro_torch.fleet.lifecycle``): the write-ahead log
 (appended before the delta scatter, fsynced before ``insert`` returns),
 shard snapshots and :meth:`IndexFleet.save` / :meth:`IndexFleet.open`,
 background compaction and LSM-style merge/retirement
-(:meth:`IndexFleet.maintenance`), as in the reference.  The JAX package's
-online recall sentinel is not ported yet.
+(:meth:`IndexFleet.maintenance`), as in the reference.
+
+Online recall sentinel (:class:`repro_torch.obs.RecallSentinel`): when one
+is installed as ``fleet.sentinel``, every ``query`` hands it the answer once
+that answer is on the host, for off-path exhaustive audits; the hook only
+copies host arrays, so served answers are bit-identical with it on or off.
 """
 from __future__ import annotations
 
@@ -402,7 +406,7 @@ def _as_mesh(mesh) -> Optional[List[torch.device]]:
     if len(devices) != 1:
         raise NotImplementedError(
             f"a mesh of {len(devices)} devices: the port's stacked placement "
-            "runs on one card; multi-GPU placement is ROADMAP queue 1 item 7")
+            "runs on one card; multi-GPU placement is ROADMAP queue 1 item 4")
     return devices
 
 
@@ -462,6 +466,9 @@ class IndexFleet:
         # (scores, true-hit counts) pairs recorded by audit_routing(...,
         # record=True); SignatureRouter.learn_threshold consumes them
         self.routing_traces: List[Tuple[np.ndarray, np.ndarray]] = []
+        # online recall sentinel (repro_torch.obs.RecallSentinel installs
+        # itself here); query() hands it each answered batch
+        self.sentinel = None
         ref = weakref.ref(self)
 
         def _collect():
@@ -1215,6 +1222,11 @@ class IndexFleet:
         self.query_hist.observe(sp_root.duration_ms)
         for t in touched:
             self.touched_hist.observe(float(t))
+        if self.sentinel is not None:
+            # shadow-sampling copies (query, answer) pairs of the host
+            # arrays aside for the off-path audit; it never mutates them,
+            # so served answers are bit-identical with sampling on or off
+            self.sentinel.observe(queries, k, best_d, best_g)
         return best_d, best_g, FleetQueryInfo(
             partitions_touched=touched, candidates_scanned=scanned,
             routed_mask=mask, lifecycle=lifecycle, stage_ms=stage,

@@ -20,7 +20,7 @@ Each shard refines its own :class:`~repro_torch.core.index.PartitionStore`
 (:func:`repro_torch.distributed.store.stack_stores`) so that ``shard_map``
 can lay them out over a device mesh; on one card that padded second copy
 would only be sliced back into the same rows, so the port keeps
-``stack_stores`` for the multi-GPU placement (ROADMAP queue 1 item 7) and off
+``stack_stores`` for the multi-GPU placement (ROADMAP queue 1 item 4) and off
 this path.
 
 Routing is expressed in the plan: a query not routed to a shard gets that
@@ -33,7 +33,7 @@ order, so the answer is the host loop's bit for bit.
 
 The JAX package lays the stacked shards out over a device mesh with
 ``shard_map``; the port's "mesh" is a list of torch devices and holds
-exactly one (multi-GPU placement is ROADMAP queue 1 item 7).
+exactly one (multi-GPU placement is ROADMAP queue 1 item 4).
 :meth:`dispatch` (refine only, over host-provided plans) serves the
 fleet's plan-cache hits and planner variants without a device planner.
 """
@@ -81,7 +81,7 @@ class MeshFleetPlacement:
         if len(devices) != 1:
             raise NotImplementedError(
                 "the port's stacked placement runs on one card; multi-GPU "
-                "placement is ROADMAP queue 1 item 7")
+                "placement is ROADMAP queue 1 item 4")
         self.device = dev = devices[0]
         self.num_shards = self.num_slots = len(shards)
         self._indexes = [s.index for s in shards]

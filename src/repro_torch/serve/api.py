@@ -1,9 +1,9 @@
 """Typed serving API — the one request/response contract for every entry.
 
 A copy of ``repro.serve.api`` (plain numpy dataclasses), kept in the port so
-that it imports nothing of the JAX package.  The fleet and network classes
-named below are not ported yet; their fields are kept so a configuration
-means the same in both packages.
+that it imports nothing of the JAX package; a configuration means the same
+in both packages, and the network plane (``repro_torch.serve.net``) puts
+these dataclasses on the wire in the same frames.
 
 Until this module existed each entry point had its own implicit calling
 convention: ``ClimberEngine.submit`` took a *mutable* ``QueryRequest`` it

@@ -19,19 +19,27 @@ a ``serve.tick`` span with ``query.featurize`` / ``query.plan`` /
 ``serve.latency_ms`` histogram and the queue length in the
 ``serve.queue_depth`` gauge (labelled per loop), and a weakref collector
 exposes the :class:`EngineStats` rates.  :meth:`BatchedServingLoop._after_tick`
-is the between-batches hook the fleet engine drives its upkeep from.  The
-JAX package's network-plane hooks (``make_ticket``, ``execute_prepared``,
-``fail_tickets``, per-tenant in-flight counts) and its legacy
-mutable-request adapter are not ported yet.
+is the between-batches hook the fleet engine drives its upkeep from.
+
+The network plane's hooks, as in the JAX package: :meth:`make_ticket`
+validates a frozen request into a ticket counted against its tenant
+(``tenant_inflight``) and carrying its trace context, :meth:`prepare_batch`
+assembles a batch on the host, :meth:`execute_prepared` runs it (on the
+server's executor thread) under the admitting trace, and
+:meth:`fail_tickets` resolves a failed tick's tickets with a typed refusal.
+The legacy mutable :class:`QueryRequest` still goes in through
+:meth:`submit`, which warns once and writes the answer back into it.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 import time
+import warnings
 import weakref
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +49,15 @@ from repro_torch.core.query import (candidates_scanned, default_slot_budget,
                                     get_planner, plan as plan_queries)
 from repro_torch.core.refine import dispatch_refine, resolve_use_kernel
 from repro_torch.obs import REGISTRY, TRACER
+from repro_torch.obs.tracer import TraceContext
 from repro_torch.serve import api
 from repro_torch.utils.device import synchronize
 
 # distinguishes each loop's metric series in the process registry
 _LOOP_SEQ = itertools.count()
+
+# the mutable-QueryRequest adapter warns once per process, not per call
+_LEGACY_SUBMIT_WARNED = False
 
 
 class PlanCache:
@@ -85,18 +97,51 @@ class PlanCache:
         self._rows.clear()
 
 
+@dataclasses.dataclass
+class QueryRequest:
+    """One kNN request: a raw series in, (dist, gid) + metrics out.
+
+    .. deprecated::
+        The *mutable* legacy request the engine writes answers back into.
+        New code submits the frozen :class:`api.QueryRequest` through
+        :meth:`BatchedServingLoop.submit_request` and reads the
+        :class:`api.QueryResult` off the returned :class:`QueryTicket`;
+        ``submit`` keeps accepting this class (one-time
+        ``DeprecationWarning``).  ``repro_torch.serve.QueryRequest`` is the
+        frozen one.
+    """
+
+    rid: int
+    series: np.ndarray                       # [n] raw query series
+    k: int = 0                               # 0 => engine default
+    dist: Optional[np.ndarray] = None        # [k] ascending ED
+    gid: Optional[np.ndarray] = None         # [k] record ids (−1 pad)
+    metrics: Optional["QueryMetrics"] = None
+    done: bool = False
+    submitted_at: Optional[float] = None     # perf_counter at admission
+
+
 class QueryTicket:
-    """One in-flight admission: a frozen :class:`api.QueryRequest` and, once
-    a tick serves it, its :class:`api.QueryResult` (``done`` flips last)."""
+    """One in-flight admission: a frozen :class:`api.QueryRequest` paired
+    with its outcome — an :class:`api.QueryResult` on success, an
+    :class:`api.ErrorReply` on failure; ``done`` flips last.  Tickets are
+    what the queue, the network server's admission buffers and its executor
+    hand around; the frozen request is never mutated."""
 
-    __slots__ = ("request", "series", "result", "done", "submitted_at")
+    __slots__ = ("request", "series", "result", "done", "submitted_at",
+                 "legacy", "conn", "trace")
 
-    def __init__(self, request: api.QueryRequest, series: np.ndarray):
+    def __init__(self, request: api.QueryRequest, series: np.ndarray,
+                 submitted_at: Optional[float] = None):
         self.request = request
         self.series = series               # validated float32 [n]
-        self.result: Optional[api.QueryResult] = None
+        self.result = None                 # QueryResult | ErrorReply
         self.done = False
-        self.submitted_at = time.perf_counter()
+        self.submitted_at = submitted_at \
+            if submitted_at is not None else time.perf_counter()
+        self.legacy: Optional[QueryRequest] = None   # write-back adapter
+        self.conn = None                   # net server's delivery handle
+        self.trace: Optional[TraceContext] = None    # admitting context
 
     @property
     def ok(self) -> bool:
@@ -177,6 +222,10 @@ class BatchedServingLoop:
         self.k = k
         self.queue: List[QueryTicket] = []
         self.stats = EngineStats()
+        # per-tenant in-flight admissions (the net server's quota hook);
+        # finish/fail run on the executor thread, so counts take a lock
+        self._tenant_lock = threading.Lock()
+        self._tenant_inflight: Dict[str, int] = {}
         # registry wiring: a per-instance label keeps concurrent loops'
         # series apart; EngineStats keeps its dataclass shape and is
         # exposed through a weakref collector
@@ -230,19 +279,84 @@ class BatchedServingLoop:
             raise ValueError(f"request {rid}: k={k} exceeds the "
                              f"engine's static answer size k={self.k}")
 
+    def make_ticket(self, req: api.QueryRequest) -> QueryTicket:
+        """Validate a frozen request into an in-flight ticket (counted
+        against its tenant's quota) without enqueueing it — the net
+        server's admission buffers place tickets themselves.
+
+        Trace handoff: a wire-carried context wins (cross-process), else
+        the caller's open span is captured, so the executor thread's tick
+        adopts the *admitting* context either way."""
+        series = self.validate_series(req.series, req.request_id)
+        self.validate_k(req.k, req.request_id)
+        ticket = QueryTicket(req, series)
+        if req.trace_id:
+            ticket.trace = TraceContext(req.trace_id, req.parent_span_id)
+        else:
+            ticket.trace = TRACER.current_context()
+        with self._tenant_lock:
+            self._tenant_inflight[req.tenant] = \
+                self._tenant_inflight.get(req.tenant, 0) + 1
+        return ticket
+
+    def tenant_inflight(self, tenant: str) -> int:
+        """Admitted-but-unanswered requests of one tenant (quota hook)."""
+        with self._tenant_lock:
+            return self._tenant_inflight.get(tenant, 0)
+
+    def _release_tenant(self, ticket: QueryTicket) -> None:
+        with self._tenant_lock:
+            t = ticket.request.tenant
+            n = self._tenant_inflight.get(t, 0) - 1
+            if n > 0:
+                self._tenant_inflight[t] = n
+            else:
+                self._tenant_inflight.pop(t, None)
+
     # -- request-queue serving -------------------------------------------
     def submit_request(self, req: api.QueryRequest) -> QueryTicket:
         """Enqueue a frozen request; the ticket carries the result once a
         tick serves it."""
-        series = self.validate_series(req.series, req.request_id)
-        self.validate_k(req.k, req.request_id)
-        ticket = QueryTicket(req, series)
+        ticket = self.make_ticket(req)
+        self.queue.append(ticket)
+        self.queue_gauge.set(len(self.queue))
+        return ticket
+
+    def submit(self, req: QueryRequest) -> QueryTicket:
+        """Legacy adapter: enqueue a *mutable* :class:`QueryRequest`.
+
+        Deprecated (one-time warning): wraps the request into the typed path
+        and writes ``dist`` / ``gid`` / ``metrics`` / ``done`` back into the
+        caller's object when the tick completes.
+        """
+        global _LEGACY_SUBMIT_WARNED
+        if not _LEGACY_SUBMIT_WARNED:
+            _LEGACY_SUBMIT_WARNED = True
+            warnings.warn(
+                "submit() with the mutable repro_torch.serve.knn_engine."
+                "QueryRequest is deprecated; use submit_request(repro_torch."
+                "serve.api.QueryRequest) and read the ticket's QueryResult",
+                DeprecationWarning, stacklevel=2)
+        series = self.validate_series(req.series, req.rid)
+        self.validate_k(req.k, req.rid)
+        req.series = series
+        if req.submitted_at is None:
+            req.submitted_at = time.perf_counter()
+        ticket = QueryTicket(
+            api.QueryRequest(series=series, k=req.k, request_id=req.rid),
+            series, submitted_at=req.submitted_at)
+        ticket.legacy = req
+        ticket.trace = TRACER.current_context()
+        with self._tenant_lock:
+            self._tenant_inflight[""] = self._tenant_inflight.get("", 0) + 1
         self.queue.append(ticket)
         self.queue_gauge.set(len(self.queue))
         return ticket
 
     def prepare_batch(self, tickets: List[QueryTicket]) -> np.ndarray:
-        """Validated tickets → one zero-padded ``[batch_size, n]`` batch."""
+        """Validated tickets → one zero-padded ``[batch_size, n]`` batch —
+        the host half of double buffering: the net server assembles batch
+        N+1 here while its executor thread runs batch N."""
         if len(tickets) > self.batch_size:
             raise ValueError(f"{len(tickets)} tickets exceed "
                              f"batch_size={self.batch_size}")
@@ -251,8 +365,56 @@ class BatchedServingLoop:
             qbatch[i] = t.series
         return qbatch
 
+    @staticmethod
+    def _batch_context(tickets: List[QueryTicket]):
+        """The trace context one tick adopts: the first admitted ticket's,
+        with the count of distinct trace ids in the batch (the tick span's
+        ``traces`` attribute); each result still echoes its own trace id."""
+        ids = {t.trace.trace_id for t in tickets if t.trace is not None}
+        for t in tickets:
+            if t.trace is not None:
+                return t.trace, len(ids)
+        return None, 0
+
+    def execute_prepared(self, qbatch: np.ndarray,
+                         tickets: List[QueryTicket]) -> int:
+        """Run one pre-assembled tick and complete its tickets.
+
+        The device half of double buffering, safe to call from a dedicated
+        executor thread while the event loop keeps admitting: ``_execute``
+        names its device and returns host arrays, so the answers are final
+        when the tickets complete.  Raises whatever ``_execute`` raises; the
+        caller decides whether to :meth:`fail_tickets`.  The tick span, the
+        maintenance hook and anything it triggers adopt the admitting
+        requests' trace context.
+        """
+        ctx, ntraces = self._batch_context(tickets)
+        with TRACER.adopt(ctx):
+            with TRACER.span("serve.tick", loop=self.obs_label,
+                             live=len(tickets), traces=ntraces) as tick:
+                dist, gid, touched, scanned, dt = \
+                    self._execute(qbatch, len(tickets))
+            self._finish_batch(tickets, dist, gid, touched, scanned, dt,
+                               tick_span=tick)
+            self._after_tick()
+        return len(tickets)
+
+    def fail_tickets(self, tickets: List[QueryTicket],
+                     error: api.ErrorReply) -> None:
+        """Resolve tickets with a typed refusal (executor fault paths)."""
+        for t in tickets:
+            t.result = dataclasses.replace(
+                error, request_id=t.request.request_id)
+            self._release_tenant(t)
+            if t.legacy is not None:
+                t.legacy.done = True
+            t.done = True
+
     def _finish_batch(self, tickets: List[QueryTicket], dist, gid,
-                      touched, scanned, dt: float) -> None:
+                      touched, scanned, dt: float, tick_span=None) -> None:
+        """Complete one tick's tickets: typed results (echoing each
+        ticket's trace id and the ``serve.tick`` span), the legacy
+        write-back, tenant release, latency histogram and stats."""
         done_at = time.perf_counter()
         fill = len(tickets) / self.batch_size
         metrics = []
@@ -266,7 +428,15 @@ class BatchedServingLoop:
                 request_id=req.request_id, dist=dist[i, :kq], gid=gid[i, :kq],
                 partitions_touched=qm.partitions_touched,
                 candidates_scanned=qm.candidates_scanned,
-                latency_ms=(done_at - t.submitted_at) * 1e3, batch_fill=fill)
+                latency_ms=(done_at - t.submitted_at) * 1e3, batch_fill=fill,
+                trace_id=t.trace.trace_id if t.trace is not None else 0,
+                parent_span_id=tick_span.span_id
+                if tick_span is not None else 0)
+            if t.legacy is not None:      # thin adapter: mutate in place
+                t.legacy.dist, t.legacy.gid = dist[i, :kq], gid[i, :kq]
+                t.legacy.metrics = qm
+                t.legacy.done = True
+            self._release_tenant(t)
             t.done = True
             metrics.append(qm)
             self.latency_hist.observe(t.result.latency_ms)
@@ -278,13 +448,18 @@ class BatchedServingLoop:
         if not self.queue:
             return 0
         live = self.queue[:min(self.batch_size, len(self.queue))]
-        with TRACER.span("serve.tick", loop=self.obs_label, live=len(live)):
-            dist, gid, touched, scanned, dt = \
-                self._execute(self.prepare_batch(live), len(live))
-        del self.queue[:len(live)]
-        self.queue_gauge.set(len(self.queue))
-        self._finish_batch(live, dist, gid, touched, scanned, dt)
-        self._after_tick()
+        qbatch = self.prepare_batch(live)
+        ctx, ntraces = self._batch_context(live)
+        with TRACER.adopt(ctx):
+            with TRACER.span("serve.tick", loop=self.obs_label,
+                             live=len(live), traces=ntraces) as tick:
+                dist, gid, touched, scanned, dt = \
+                    self._execute(qbatch, len(live))
+            del self.queue[:len(live)]
+            self.queue_gauge.set(len(self.queue))
+            self._finish_batch(live, dist, gid, touched, scanned, dt,
+                               tick_span=tick)
+            self._after_tick()
         return len(live)
 
     def run_until_drained(self, max_ticks: int = 10_000) -> None:

@@ -367,7 +367,8 @@ def test_fleet_engine_equals_query(fleets):
         np.testing.assert_array_equal(gid, gf)
         np.testing.assert_array_equal(dist, df)
         assert [m.partitions_touched for m in metrics] == info.partitions_touched.tolist()
-    with pytest.raises(NotImplementedError, match="sentinel"):
-        FleetEngine(port, sentinel_rate=0.1)
+    eng = FleetEngine(port, sentinel_rate=0.1)       # the sentinel is ported
+    assert port.sentinel is eng.sentinel and eng.sentinel.sample_rate == 0.1
+    port.sentinel = None                             # the fixture is shared
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.attach_mesh(["cpu", "cpu"])

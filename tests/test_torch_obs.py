@@ -3,9 +3,9 @@
 The registry and tracer are copies of the JAX package's pure-Python
 modules: the same observations give the same histogram counts and
 quantiles, and the same span calls the same trees, trace ids, adoption
-and ring behaviour.  The port's engine and fleet open the JAX package's
-span names and register its metric names (read from the reference sources,
-less the network plane and the recall sentinel, which are not ported).
+and ring behaviour.  The port's engine, fleet, network plane and recall
+sentinel open the JAX package's span names and register its metric names
+(read from the reference sources).
 """
 import re
 import threading
@@ -152,19 +152,17 @@ def _names(paths, pattern):
 SPAN = r'TRACER\.span\(\s*"([a-z_.]+)"'
 METRIC = r'REGISTRY\.(?:histogram|gauge|counter)\(\s*"([a-z_.]+)"'
 COLLECTED = r'"((?:fleet|serve)\.[a-z_]+)":'
-REF = ["src/repro/serve/knn_engine.py", "src/repro/fleet/fleet.py",
-       "src/repro/fleet/engine.py", "src/repro/fleet/lifecycle/compactor.py"]
-PORT = ["src/repro_torch/serve/knn_engine.py", "src/repro_torch/fleet/fleet.py",
-        "src/repro_torch/fleet/engine.py",
-        "src/repro_torch/fleet/lifecycle/compactor.py"]
-NOT_PORTED = {"net.", "sentinel", "online_recall"}
+MODULES = ["serve/knn_engine.py", "fleet/fleet.py", "fleet/engine.py",
+           "fleet/lifecycle/compactor.py", "serve/net/server.py",
+           "serve/net/client.py", "obs/sentinel.py", "obs/flight.py"]
+REF = [f"src/repro/{m}" for m in MODULES]
+PORT = [f"src/repro_torch/{m}" for m in MODULES]
 
 
 @pytest.mark.parametrize("pattern", [SPAN, METRIC, COLLECTED],
                          ids=["spans", "metrics", "collected"])
 def test_engine_and_fleet_names_match_reference(pattern):
-    ref = {n for n in _names(REF, pattern)
-           if not any(tag in n for tag in NOT_PORTED)}
+    ref = _names(REF, pattern)
     assert ref and _names(PORT, pattern) == ref
 
 
