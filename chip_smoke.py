@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's five paths once on one NVIDIA card, at the paper's
+Drives the port's six paths once on one NVIDIA card, at the paper's
 configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10, c=3000,
 K=500), with every kernel's launch count zeroed just before each path and
 read just after it:
@@ -52,7 +52,24 @@ read just after it:
    server must drain and stop.  After its launch counts are read,
    ``refine_topk`` is held against its plain version on a two-row tick's
    plans over every sealed shard and over the live delta.
-5. **frontier**: ``run_frontier`` at ``ClimberConfig()`` (a spec subclass
+5. **mesh**, on that fleet and the serve path's index: one card as the
+   slots of ``make_mesh(D, devices=[card] * D)``.  ``ClimberEngine`` with
+   ``mesh=`` 4 slots over the 2^22-series index (256 adaptive queries at
+   batch 64) must equal the one-device engine bit for bit; the fleet
+   (5 sealed shards and a live delta) on 3 slots (padded to 6) and on 4
+   (padded to 8), signature routing at fan-out 2 and exhaustive routing,
+   cold and cached, must equal ``placement="host"`` bit for bit,
+   ``partitions_touched`` and ``candidates_scanned`` included, with the
+   batch ms beside the one-slot stacked pass; ``scan_exact(mesh=)`` on 4
+   slots must equal ``scan_exact()``; ``exact_knn_sharded`` of 64 queries
+   over the 2^22 series on 4 slots must equal ``exact_knn`` (ids up to
+   k-th ties, d² within 1e-5·(‖q‖²+‖x‖²)); and one ``maxmin`` build of
+   ``--fleet-shard`` series beside a random one must store every record
+   exactly once.  The one-device answers are computed before the launch
+   counts are zeroed.  After they are read, ``refine_topk`` is held
+   against its plain version on the engine's slot 1 of 4 and the fleet's
+   slot 1 of 4.
+6. **frontier**: ``run_frontier`` at ``ClimberConfig()`` (a spec subclass
    whose ``shard_cfg()`` returns it) over ``randomwalk`` and ``seismic``
    tenant corpora at 1 and 4 shards of ``--frontier-shard`` series, 64
    queries, 32 calibration queries, the spec's fan-outs, thresholds, spend
@@ -668,7 +685,7 @@ def net_path(fleet, q_np, k, bs, report) -> dict:
 def fleet_path(args, dev, cfg, report):
     """The fleet path (module docstring, item 3), then the network path on
     its fleet (item 4).  Every hard check raises.  Returns the two paths'
-    launch counts."""
+    launch counts and the fleet (the mesh path runs on it)."""
     import numpy as np
     import torch
     from repro_torch.baselines import exact_knn
@@ -680,6 +697,9 @@ def fleet_path(args, dev, cfg, report):
 
     k, nq, bs = cfg.k, args.queries, 64
     out = report.setdefault("fleet", {})
+    # what the card holds as the path starts (the serve index the mesh
+    # path reuses): the path's peaks below include it
+    out["resident_at_start_gb"] = torch.cuda.memory_allocated() / 1e9
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t_path = time.perf_counter()
@@ -895,7 +915,181 @@ def fleet_path(args, dev, cfg, report):
         net_launches = net_path(fleet, q_np, k, bs, report)
     finally:
         shutil.rmtree(storage, ignore_errors=True)
-    return launches, net_launches
+    return launches, net_launches, fleet
+
+
+MESH_KERNELS = ("paa", "pivot_rank", "refine_topk", "pairwise_l2")
+MESH_SLOTS = (3, 4)           # the fleet's meshes; the engine's and Dss's: 4
+
+
+def mesh_path(args, dev, cfg, report, index, queries, data, fleet):
+    """The device mesh (module docstring, item 5) on one card: every slot of
+    ``make_mesh(D, devices=[dev] * D)`` is the same card, so the slots take
+    views of the stores and run one after another.  The one-device answers
+    each mesh run is held to are computed before the launch counts are
+    zeroed.  Every hard check raises.  Returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines import exact_knn, exact_knn_sharded
+    from repro_torch.core.index import build_index
+    from repro_torch.distributed import shard_store, slot_range
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh
+    from repro_torch.serve import ClimberEngine
+
+    k, bs = cfg.k, 64
+    out = report.setdefault("mesh", {})
+    q_np = queries.cpu().numpy()
+    nq = len(q_np)
+    mesh4 = make_mesh(4, devices=[dev] * 4)
+    routings = (("signature", {"routing": "signature", "fanout": 2}),
+                ("exhaustive", {"routing": "exhaustive"}))
+
+    def engine_run(**kw):
+        eng = ClimberEngine(index, batch_size=bs, variant="adaptive", k=k, **kw)
+        eng.run(q_np[:bs])                                  # warm-up tick
+        eng.reset_metrics()
+        d, g, _ = eng.run(q_np)
+        return d, g, eng.stats.total_s / eng.stats.ticks * 1e3
+
+    def fleet_pass(placement):
+        """Every routing over the queries in batches of 64, cold then with
+        every plan cached: answers, metrics and ms per batch."""
+        res = {}
+        for name, kw in routings:
+            fleet._plan_cache.clear()     # the plans are routing-free: start cold
+            for label in ("cold", "cached"):
+                parts, ms = [], []
+                for a in range(0, nq, bs):
+                    (r, secs) = sync_wall(lambda: fleet.query(
+                        q_np[a:a + bs], k, variant="adaptive", placement=placement,
+                        **kw))
+                    parts.append(r)
+                    ms.append(secs * 1e3)
+                d, g, infos = zip(*parts)
+                res[name, label] = (
+                    np.concatenate(d), np.concatenate(g),
+                    np.concatenate([i.partitions_touched for i in infos]),
+                    np.concatenate([i.candidates_scanned for i in infos]),
+                    float(np.mean(ms)))
+        return res
+
+    # ---- the one-device answers (not counted) ----------------------------
+    torch.cuda.synchronize()
+    eng_one = engine_run()
+    fleet.attach_mesh([dev])                   # the stacked one-slot pass
+    host = fleet_pass("host")
+    one_slot = fleet_pass("mesh")
+    scan_one, scan_one_s = sync_wall(lambda: fleet.scan_exact(q_np[:bs]))
+    q64 = queries[:bs].contiguous()
+    (dss_one, dss_one_s) = sync_wall(lambda: exact_knn(q64, data, k))
+
+    # ---- the mesh path, launch counts zeroed ------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+    eng_mesh = engine_run(mesh=mesh4)
+    if not (np.array_equal(eng_mesh[0], eng_one[0])
+            and np.array_equal(eng_mesh[1], eng_one[1])):
+        raise SystemExit("mesh: the engine on 4 slots differs from one device")
+    out["engine"] = {"slots": 4, "queries": nq, "tick_ms_one_device": eng_one[2],
+                     "tick_ms_mesh": eng_mesh[2]}
+    say(f"mesh engine: 4 slots == one device on {nq} adaptive queries (dist and gid "
+        f"bit-equal); tick {eng_mesh[2]:.3f} ms vs {eng_one[2]:.3f} ms")
+
+    fleets = {}
+    for d_slots in MESH_SLOTS:
+        fleet.attach_mesh(make_mesh(d_slots, devices=[dev] * d_slots))
+        res = fleet_pass("mesh")
+        pl = fleet._placement
+        for key, (d, g, pt, sc, _) in res.items():
+            hd, hg, hpt, hsc, _ = host[key]
+            if not (np.array_equal(d, hd) and np.array_equal(g, hg)
+                    and np.array_equal(pt, hpt) and np.array_equal(sc, hsc)):
+                raise SystemExit(f"mesh: the fleet on {d_slots} slots differs from "
+                                 f"the host loop ({key})")
+        fleets[d_slots] = {
+            "shards": pl.num_shards, "num_slots": pl.num_slots,
+            "shards_per_slot": [len(s_.shards) for s_ in pl._slots],
+            "batch_ms": {f"{a} {b}": v[4] for (a, b), v in res.items()}}
+        say(f"mesh fleet D={d_slots}: {pl.num_shards} shards padded to "
+            f"{pl.num_slots} slots == host loop on {nq} queries, signature fan-out 2 "
+            f"and exhaustive, cold and cached (dist, gid, partitions_touched, "
+            f"candidates_scanned bit-equal); " + json.dumps(fleets[d_slots]))
+    out["fleet"] = fleets
+    out["fleet_one_slot_batch_ms"] = {f"{a} {b}": v[4] for (a, b), v in one_slot.items()}
+    out["fleet_host_batch_ms"] = {f"{a} {b}": v[4] for (a, b), v in host.items()}
+
+    scan_mesh, scan_mesh_s = sync_wall(lambda: fleet.scan_exact(q_np[:bs], mesh=mesh4))
+    if not all(np.array_equal(a, b) for a, b in zip(scan_mesh, scan_one)):
+        raise SystemExit("mesh: scan_exact on 4 slots differs from one device")
+    out["scan_exact"] = {"ms_one_device": scan_one_s * 1e3, "ms_mesh": scan_mesh_s * 1e3}
+    say(f"mesh scan_exact: 4 slots == one device on {bs} queries (bit-equal); "
+        f"{scan_mesh_s * 1e3:.1f} ms vs {scan_one_s * 1e3:.1f} ms")
+
+    (dss_mesh, dss_mesh_s) = sync_wall(lambda: exact_knn_sharded(q64, data, k,
+                                                                  mesh=mesh4))
+    tol = 1e-5 * ((q64.double() ** 2).sum(-1, keepdim=True)
+                  + float((data[:1 << 16].double() ** 2).sum(-1).max()))
+    err, differ = assert_same_topk("exact_knn_sharded vs exact_knn",
+                                   dss_mesh[0].double() ** 2, dss_mesh[1],
+                                   dss_one[0].double() ** 2, dss_one[1], tol)
+    bit_equal = bool(torch.equal(dss_mesh[0], dss_one[0])
+                     and torch.equal(dss_mesh[1], dss_one[1]))
+    out["exact_knn"] = {"rows": data.shape[0], "queries": bs, "max_abs_err": err,
+                        "gid_queries_differ": differ, "bit_equal": bit_equal,
+                        "ms_one_device": dss_one_s * 1e3, "ms_mesh": dss_mesh_s * 1e3}
+    say(f"mesh exact_knn_sharded: 4 slots vs exact_knn over {data.shape[0]} series, "
+        f"{bs} queries: max |Δd²| {err:.3g}, {differ} queries reorder at ties, "
+        f"bit-equal {bit_equal}; {dss_mesh_s * 1e3:.1f} ms vs {dss_one_s * 1e3:.1f} ms")
+
+    # one max-min build of one fleet shard's size, beside a random one
+    rows = data[:args.fleet_shard]
+    builds = {}
+    for method in ("random", "maxmin"):
+        g_b = torch.Generator(device=dev).manual_seed(args.seed + 21)
+        ix, secs = sync_wall(lambda: build_index(rows, cfg, device=dev, generator=g_b,
+                                                 pivot_method=method))
+        gid = ix.store.rec_gid
+        live = torch.sort(gid[gid >= 0]).values
+        if not torch.equal(live, torch.arange(rows.shape[0], device=dev,
+                                              dtype=live.dtype)):
+            raise SystemExit(f"mesh: the {method} build does not store every "
+                             f"record exactly once")
+        builds[method] = {"seconds": secs, "P": ix.store.num_partitions,
+                          "cap": ix.store.capacity, "G": ix.num_groups,
+                          "steps_s": {a: round(b, 3)
+                                      for a, b in ix.build_seconds.items()}}
+        del ix, gid, live
+    out["builds"] = builds
+    say(f"mesh build options: {rows.shape[0]} series, every record stored once "
+        f"by both; " + json.dumps(builds, default=float))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_path
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say(f"mesh-path launches: {launches} ({out['seconds']:.1f} s, peak device memory "
+        f"{out['peak_memory_gb']:.1f} GB)")
+    missing = [name for name in MESH_KERNELS if launches[name] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the mesh path: {missing}")
+
+    # refine_topk against its plain version on one slot's plans: the
+    # engine's slot 1 of 4 and the fleet's slot 1 of 4 (its first shard)
+    qp = host_plan(index, q64, "adaptive")
+    lo, hi = slot_range(index.store.num_partitions, 4, 1)
+    sp_local = torch.where((qp[0] >= lo) & (qp[0] < hi), qp[0] - lo, -1)
+    slot_store = shard_store(index.store, mesh4)[1]
+    pl = fleet._placement
+    j = pl._slots[1].shards[0]
+    fqp = pl.plan_shard(j, ops.paa(q64, cfg.paa_segments), "adaptive")
+    out["refine_checks"] = refine_plan_checks("mesh", q64, k, (
+        ("engine slot 1 of 4", slot_store, (sp_local, qp[1], qp[2])),
+        (f"fleet slot 1 of 4, shard {fleet.shards[j].key}",
+         pl._slots[1].stores[0], (fqp.sel_part, fqp.sel_lo, fqp.sel_hi))))
+    return launches
 
 
 def frontier_path(args, dev, cfg, report) -> dict:
@@ -1620,13 +1814,20 @@ def main(argv=None) -> int:
         "ptxas": ptxas_of("qdots")})
     del rows_q
 
-    # ---- fleet path, launch counts zeroed (the serve data and index go) ---
-    del data, index, store, engines, eng, eng_p, x_c, z64, sp, lo_, hi_, spc, loc, hic
+    # ---- fleet path, launch counts zeroed (the serve data and index stay
+    # for the mesh path) ----------------------------------------------------
+    del store, engines, eng, eng_p, x_c, z64, sp, lo_, hi_, spc, loc, hic
     del main_plan, d_dn, g_dn, d_fu, g_fu, qq
     torch.cuda.empty_cache()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9       # serve + eval + kernels
-    fleet_launches, net_launches = fleet_path(args, dev, cfg, report)
+    fleet_launches, net_launches, fleet = fleet_path(args, dev, cfg, report)
     peak_gb = max(peak_gb, report["fleet"]["peak_memory_gb_with_checks"])
+
+    # ---- device mesh, launch counts zeroed (the fleet and the serve index
+    # go after it) ------------------------------------------------------------
+    mesh_launches = mesh_path(args, dev, cfg, report, index, queries, data, fleet)
+    peak_gb = max(peak_gb, report["mesh"]["peak_memory_gb"])
+    del fleet, data, index
     torch.cuda.empty_cache()
 
     # ---- recall frontier, launch counts zeroed (the fleet is gone) -------
@@ -1636,7 +1837,7 @@ def main(argv=None) -> int:
     # path's counts were read: their errors join the kernel rows
     for row in kernels:
         if row["name"] == "refine_topk":
-            for path in ("fleet", "net", "frontier"):
+            for path in ("fleet", "net", "mesh", "frontier"):
                 row[f"{path}_plans"] = report[path]["refine_checks"]
                 row["max_abs_err"] = max([row["max_abs_err"]] + [
                     c["max_abs_err"] for c in row[f"{path}_plans"].values()])
@@ -1646,7 +1847,8 @@ def main(argv=None) -> int:
                                      row["frontier_chunk"]["max_abs_err"])
     say(f"peak device memory of the smoke: {peak_gb:.1f} GB")
     by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches,
-               "net": net_launches, "frontier": frontier_launches}
+               "net": net_launches, "mesh": mesh_launches,
+               "frontier": frontier_launches}
     for row in kernels:
         row["launches_by_path"] = {p_: c[row["name"]] for p_, c in by_path.items()}
 

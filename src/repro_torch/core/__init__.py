@@ -1,6 +1,6 @@
 """CLIMBER core on PyTorch — the counterpart of ``repro.core``."""
 from repro_torch.core.paa import paa, znormalize
-from repro_torch.core.pivots import select_pivots
+from repro_torch.core.pivots import select_pivots, select_pivots_maxmin
 from repro_torch.core.signatures import (compute_signatures, decay_weights,
                                          pivot_distances, rank_signature,
                                          set_onehot, set_signature,
@@ -27,10 +27,11 @@ from repro_torch.core.query import (QueryPlan, ShardPlanContext,
                                     register_recall_target)
 from repro_torch.core.refine import (PAD_DIST, default_use_kernel,
                                      dispatch_refine, merge_topk, refine,
-                                     resolve_use_kernel)
+                                     refine_sharded, resolve_use_kernel)
 
 __all__ = [
-    "paa", "znormalize", "select_pivots", "compute_signatures",
+    "paa", "znormalize", "select_pivots", "select_pivots_maxmin",
+    "compute_signatures",
     "rank_signature", "set_signature", "set_onehot", "decay_weights",
     "weighted_onehot", "pivot_distances", "euclidean", "squared_l2_pairwise",
     "overlap_distance", "weight_distance", "total_weight",
@@ -43,6 +44,7 @@ __all__ = [
     "planner_names", "make_recall_target_planner", "register_recall_target",
     "register_device_planner", "get_device_planner", "device_planner_names",
     "compact_plan", "default_slot_budget",
-    "candidates_scanned", "dispatch_refine", "refine", "merge_topk",
+    "candidates_scanned", "dispatch_refine", "refine", "refine_sharded",
+    "merge_topk",
     "PAD_DIST", "default_use_kernel", "resolve_use_kernel",
 ]

@@ -1,7 +1,8 @@
 """CLIMBER-INX — index construction workflow (paper §V, Fig. 6).
 
 Four steps, staged as in the paper and the JAX package:
-  1. sample → PAA → random pivots → rank-sensitive signatures;
+  1. sample → PAA → pivots (random, or farthest-point with
+     ``pivot_method="maxmin"``) → rank-sensitive signatures;
   2. aggregate rank-insensitive signatures → group centroids (Algorithm 2);
   3. assign sample to groups → per-group tries → FFD leaf packing → skeleton;
   4. full-dataset pass: signatures → group (Algorithm 1) → trie routing →
@@ -148,14 +149,18 @@ def sample_size(n_rec: int, cfg: ClimberConfig) -> int:
 def build_index(data: torch.Tensor, cfg: ClimberConfig, *,
                 device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
-                sample_idx=None, pivot_idx=None) -> ClimberIndex:
+                sample_idx=None, pivot_idx=None,
+                pivot_method: str = "random") -> ClimberIndex:
     """End-to-end CLIMBER-INX construction (Fig. 6) on ``device``.
 
     ``sample_idx`` (``[S]``, S = :func:`sample_size`) and ``pivot_idx``
-    (``[r]``, rows of the sample) are the build's two random draws; when
-    omitted they come from ``generator``.  Handing over the JAX package's
-    draws reproduces its forest, centroids and store exactly.
-    ``index.build_seconds`` records each step's wall time.
+    are the build's two random draws; when omitted they come from
+    ``generator``.  ``pivot_method="random"`` takes ``pivot_idx`` as the
+    ``[r]`` pivot rows of the sample; ``"maxmin"`` (farthest-point, the
+    reference's beyond-paper option) as the single row it starts from.
+    Handing over the JAX package's draws reproduces its forest, centroids
+    and store exactly.  ``index.build_seconds`` records each step's wall
+    time.
     """
     dev = resolve_device(device)
     n_rec, series_len = data.shape
@@ -176,7 +181,8 @@ def build_index(data: torch.Tensor, cfg: ClimberConfig, *,
                          f"expected ({s},)")
     sample_paa = ops.paa(data[sample_idx], cfg.paa_segments)
     pivots = pivots_mod.select_pivots(sample_paa, cfg.num_pivots,
-                                      idx=pivot_idx, generator=generator)
+                                      idx=pivot_idx, generator=generator,
+                                      method=pivot_method)
     p4r_s = ops.pivot_rank(sample_paa, pivots, cfg.prefix_len)
     p4r_np = p4r_s.cpu().numpy()
     p4s_np = set_signature(p4r_s).cpu().numpy()

@@ -454,7 +454,10 @@ def knn_query(index: ClimberIndex, queries: torch.Tensor, k: int = 0, *,
               mesh=None, max_slots: Optional[int] = None):
     """End-to-end approximate kNN (featurize → plan → exact refine).
 
-    ``queries`` ``[Q, n]`` go to the index's device.  Returns
+    ``queries`` ``[Q, n]`` go to the index's device; ``mesh`` (a
+    :class:`~repro_torch.launch.DeviceMesh` or a device list) refines
+    sharded over its slots (``dispatch_refine``), with the same answer.
+    Returns
     ``(dist [Q, k], gid [Q, k], plan)``: ascending ED, original row ids
     (``-1`` with :data:`repro_torch.core.refine.PAD_DIST` where fewer than k
     candidates existed), and the executed plan.

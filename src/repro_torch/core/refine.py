@@ -15,8 +15,17 @@ record of those targets by exact ED and keep the k best.  Backends, behind
 
 ``use_kernel=None`` resolves by the store's device (:func:`default_use_kernel`):
 the kernel on CUDA, the dense path on the CPU.  ``use_kernel=False`` is the
-only way a CUDA tensor reaches the dense path.  The sharded refine of the
-JAX package (``refine_sharded``) waits for the multi-GPU slice.
+only way a CUDA tensor reaches the dense path.
+
+:func:`refine_sharded` runs the same refine over a store laid out on a
+:class:`~repro_torch.launch.DeviceMesh` (``shard_store``): each slot refines
+its own partitions on its device, the slots' lists are gathered to the lead
+device and merged once.  The merge sorts on d² stably in slot order and
+takes the square root last, which is the one-device kernel's own order
+(d², then flat index: partitions sort by id, and slot d holds lower ids
+than slot d + 1), so the sharded answer equals :func:`refine`'s bit for
+bit.  Merging the square roots instead (the JAX package's merge) would tie
+two records whose d² differ by one ulp and order them by slot.
 
 Duplicate coverage (a node and its ancestor both selected) is removed by a
 sorted-slot segmented scan: plan entries are sorted by partition id, and a
@@ -27,14 +36,16 @@ kernel's plain version; the CUDA kernel evaluates the same predicate.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.index import PartitionStore
+from repro_torch.distributed.store import shard_store, slot_range
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.refine_topk import PAD_D2, masked_distances, topk_flat
+from repro_torch.launch.mesh import as_mesh
 
 # Sentinel distance of a pad answer (gid = -1): both refine paths emit
 # sqrt(PAD_D2) for slots with fewer than k candidates.
@@ -79,13 +90,24 @@ def refine(store: PartitionStore, queries: torch.Tensor, sel_part: torch.Tensor,
       (−1 where fewer than k candidates existed; their distance is the
       :data:`PAD_DIST` sentinel on both paths).
     """
+    return _finish(*_refine_d2(store, queries, sel_part, sel_lo, sel_hi, k,
+                               use_kernel))
+
+
+def _refine_d2(store: PartitionStore, queries, sel_part, sel_lo, sel_hi,
+               k: int, use_kernel: Optional[bool]):
+    """``(d² [Q, k], gid [Q, k])`` by (d², flat index), on the store's
+    device: the refine before its square root."""
     if resolve_use_kernel(use_kernel, store.data.device):
-        d2, gid = kernel_ops.fused_refine_topk_device_plan(
+        return kernel_ops.fused_refine_topk_device_plan(
             store.data, store.norms, store.rec_dfs, store.rec_gid,
             queries, sel_part, sel_lo, sel_hi, k)
-    else:
-        d2, gid = topk_flat(*_masked_distances(store, queries, sel_part,
-                                               sel_lo, sel_hi), k)
+    return topk_flat(*_masked_distances(store, queries, sel_part, sel_lo,
+                                        sel_hi), k)
+
+
+def _finish(d2: torch.Tensor, gid: torch.Tensor):
+    """ED and gids of a d² list: ``PAD_DIST`` / ``-1`` past the pool."""
     return torch.sqrt(d2), torch.where(d2 >= PAD_D2, -1, gid)
 
 
@@ -127,17 +149,62 @@ def merge_topk(dist_a, gid_a, dist_b, gid_b, k: int, *, dedupe: bool = False):
     return torch.gather(dist, -1, order), torch.gather(gid, -1, order)
 
 
+def refine_sharded(store: PartitionStore, queries: torch.Tensor,
+                   sel_part: torch.Tensor, sel_lo: torch.Tensor,
+                   sel_hi: torch.Tensor, k: int, *, mesh,
+                   use_kernel: Optional[bool] = None,
+                   slots: Optional[Sequence[PartitionStore]] = None):
+    """Refine over ``store`` laid out on ``mesh``: a local refine per slot,
+    one gather to the lead device, one merge.
+
+    Global partition ids in ``sel_part`` become slot-local ids (``-1`` off
+    the slot).  Every slot's refine is launched before the first gather,
+    each on its device's current stream, so distinct cards overlap and the
+    cross-device copies order themselves after their producers.
+
+    Args:
+      store: the whole store (its partition count fixes the layout).
+      mesh: a :class:`~repro_torch.launch.DeviceMesh` or a device list.
+      slots: ``shard_store(store, mesh)`` when the caller laid the store
+        out once already (the serving engine); laid out here otherwise.
+
+    Returns ``(dist, gid)`` on the lead device, equal to :func:`refine`'s
+    bit for bit.
+    """
+    mesh = as_mesh(mesh)
+    if slots is None:
+        slots = shard_store(store, mesh)
+    parts: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for d, (dev, st) in enumerate(zip(mesh.devices, slots)):
+        lo, hi = slot_range(store.num_partitions, mesh.size, d)
+        if hi == lo:
+            continue                    # an inert slot: nothing to refine
+        sp = sel_part.to(dev)
+        sp_local = torch.where((sp >= lo) & (sp < hi), sp - lo, -1)
+        parts.append(_refine_d2(st, queries.to(dev), sp_local,
+                                sel_lo.to(dev), sel_hi.to(dev), k,
+                                use_kernel))
+    lead = mesh.lead
+    d2 = torch.cat([p[0].to(lead) for p in parts], dim=-1)
+    gid = torch.cat([p[1].to(lead) for p in parts], dim=-1)
+    return _finish(*topk_flat(d2, gid, k))
+
+
 def dispatch_refine(store: PartitionStore, queries: torch.Tensor,
                     sel_part: torch.Tensor, sel_lo: torch.Tensor,
                     sel_hi: torch.Tensor, k: int, *, mesh=None,
-                    use_kernel: Optional[bool] = None):
-    """Single execution-dispatch layer for the query stack (single device).
+                    use_kernel: Optional[bool] = None,
+                    slots: Optional[Sequence[PartitionStore]] = None):
+    """Single execution-dispatch layer for the query stack.
 
-    ``mesh=`` is the JAX package's sharded path; the port has no multi-GPU
-    refine yet and raises on it.
+    ``mesh=None`` or a one-device mesh runs :func:`refine` on the store's
+    device; a mesh of more slots runs :func:`refine_sharded` (``slots`` as
+    there).  Both return ``[Q, k]`` ascending ED and gids with the
+    :data:`PAD_DIST` / ``-1`` sentinel, equal bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError("the port's refine is single-device; "
-                                  "multi-GPU refine is not ported yet")
+    mesh = as_mesh(mesh)
+    if mesh is not None and mesh.size > 1:
+        return refine_sharded(store, queries, sel_part, sel_lo, sel_hi, k,
+                              mesh=mesh, use_kernel=use_kernel, slots=slots)
     return refine(store, queries, sel_part, sel_lo, sel_hi, k,
                   use_kernel=use_kernel)

@@ -1,12 +1,14 @@
-"""PartitionStore layouts for the fleet — the counterpart of
-``repro.distributed.store`` for one card.
+"""PartitionStore layouts — the counterpart of ``repro.distributed.store``.
 
   * :func:`pad_store` — append inert partitions up to a multiple;
+  * :func:`shard_store` — one store laid out over a
+    :class:`~repro_torch.launch.DeviceMesh`: slot d gets the partitions
+    ``[d·per, (d+1)·per)``, ``per = ceil(P / D)`` (the sharded refine);
   * :func:`stack_stores` — whole shard stores on a NEW leading shard axis
     (``[S, P, cap, n]``, ragged P/cap padded with inert slots, local record
-    ids remapped to fleet-global ids): the JAX package's layout for
-    ``shard_map`` over a device mesh, kept for the multi-GPU placement —
-    on one card the fleet's stacked pass refines each shard's own store;
+    ids remapped to fleet-global ids): the JAX package's fleet layout for
+    ``shard_map``.  The port's fleet placement refines each shard's own
+    store on its slot's device instead, so nothing on its path stacks;
   * :func:`concat_stores` — one union store along the partition axis, the
     fleet's exact full scan (``IndexFleet.scan_exact``);
   * :func:`store_to_arrays` / ``store_from_arrays`` (the latter lives in
@@ -15,17 +17,16 @@
 
 Pad slots carry ``rec_gid = rec_dfs = -1``: never a live record, never
 inside a node interval, so a padded store answers as the unpadded one.
-``store_pspecs`` and ``shard_store`` (the JAX package's multi-device
-layout) wait for the multi-GPU slice.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.index import PartitionStore, store_from_arrays  # noqa: F401
+from repro_torch.launch.mesh import as_mesh
 
 _FILL = {"data": 0, "norms": 0, "rec_dfs": -1, "rec_gid": -1, "count": 0}
 
@@ -39,6 +40,59 @@ def pad_store(store: PartitionStore, multiple: int) -> PartitionStore:
         torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), _FILL[name],
                                  dtype=x.dtype, device=x.device)])
         for name, x in zip(PartitionStore._fields, store)])
+
+
+# ``store_pspecs`` (the JAX package's PartitionSpec per store field) has no
+# counterpart: a slot's partitions are a tensor on its device, not a
+# NamedSharding of one array, and :func:`shard_store` is that layout.
+
+
+def slot_range(num_partitions: int, num_slots: int, d: int):
+    """Slot ``d``'s global partition range ``[lo, hi)``: ``[d·per,
+    (d+1)·per)`` cut at P, ``per = ceil(P / D)`` (the reference's
+    ``pad_store`` split)."""
+    per = -(-num_partitions // num_slots)
+    lo = min(d * per, num_partitions)
+    return lo, min(lo + per, num_partitions)
+
+
+def _inert_store(like: PartitionStore, device) -> PartitionStore:
+    """One empty partition of one slot: plans never select it."""
+    n = like.data.shape[-1]
+    full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
+    return PartitionStore(full((1, 1, n), 0, like.data.dtype),
+                          full((1, 1), 0, like.norms.dtype),
+                          full((1, 1), -1, like.rec_dfs.dtype),
+                          full((1, 1), -1, like.rec_gid.dtype),
+                          full((1,), 0, like.count.dtype))
+
+
+def to_device(store: PartitionStore, device) -> PartitionStore:
+    """The store on ``device``: itself when it is there, else a copy."""
+    if store.data.device == torch.device(device):
+        return store
+    return PartitionStore(*(x.to(device) for x in store))
+
+
+def shard_store(store: PartitionStore, mesh) -> List[PartitionStore]:
+    """Lay ``store`` out over ``mesh``: one store per slot, on its device.
+
+    Slot d holds the partitions ``[d·per, (d+1)·per)`` of
+    :func:`slot_range`.  A slot on the store's own device gets views of its
+    rows, not copies; another device gets one copy of them.  The last
+    slot's pad partitions are not materialised (no plan selects them), and
+    a slot with no real partition gets a one-slot inert store.
+    """
+    mesh = as_mesh(mesh)
+    out = []
+    for d, dev in enumerate(mesh.devices):
+        lo, hi = slot_range(store.num_partitions, mesh.size, d)
+        if hi == lo:
+            out.append(_inert_store(store, dev))
+        else:
+            out.append(to_device(PartitionStore(*(x[lo:hi] for x in store)),
+                                 dev))
+    return out
 
 
 def _remap(gid: torch.Tensor, gid_map) -> torch.Tensor:

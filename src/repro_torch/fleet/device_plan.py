@@ -1,8 +1,8 @@
 """Stacked trie skeletons — the planning inputs of the fleet's stacked pass.
 
-The stacked placement's query pass (``MeshFleetPlacement.query``) plans
-every sealed shard on the card, next to its stacked partition store, with
-no copy back to the host between plan and refine.  Shards are ragged
+The mesh placement's query pass (``MeshFleetPlacement.query``) plans
+every sealed shard on its slot's device, next to the shard's partition
+store, with no copy back to the host between plan and refine.  Shards are ragged
 (node, edge, group and partition counts differ), so the skeletons are
 padded to fleet-wide maxima with *inert* entries
 (:func:`repro_torch.core.traversal.pad_trie`) and stacked on a new leading

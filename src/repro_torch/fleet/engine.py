@@ -35,8 +35,9 @@ class FleetEngine(BatchedServingLoop):
       fleet: the IndexFleet to serve (it may keep ingesting between ticks).
       routing: ``"signature"``, ``"adaptive"`` or ``"exhaustive"``.
       variant: per-shard planner variant.
-      mesh: attach a mesh (a list of one torch device) to the fleet, so
-        sealed shards run in the stacked placement.
+      mesh: attach a mesh (a :class:`~repro_torch.launch.DeviceMesh` or a
+        device list, D slots) to the fleet, so sealed shards run in the
+        mesh placement.
       placement: ``"host"``, ``"mesh"``, or None for the fleet default.
       maintenance_every: run :meth:`maintenance` after every Nth queue tick
         (0 = only when called).

@@ -22,15 +22,16 @@ Placement — where the sealed shards execute:
 
   * ``placement="host"`` — the oracle: a host loop runs each routed
     shard's featurize → plan → refine in turn;
-  * ``placement="mesh"`` — the trie skeletons are stacked on the card
-    (:class:`repro_torch.fleet.placement.MeshFleetPlacement`) and one pass
-    runs featurize → descent → plan → refine → in-order merge for every
-    shard with no copy to the host in between.  The port's "mesh" is a
-    list of torch devices of length one (multi-GPU placement is ROADMAP
-    queue 1 item 4).  Both placements give the same answers bit for bit:
-    the device planner reproduces the host plans entry for entry, the
-    refine is the same kernel over the same store and the merge order is
-    the shards' order; the delta is merged last on both.
+  * ``placement="mesh"`` — the shards are laid out over a
+    :class:`~repro_torch.launch.DeviceMesh` of D slots
+    (:class:`repro_torch.fleet.placement.MeshFleetPlacement`): each slot
+    runs featurize → descent → plan → refine → in-order merge for the
+    shards it owns with no copy to the host in between, and the slots'
+    answers fold in shard order on the lead device.  Both placements give
+    the same answers bit for bit on any D: the device planner reproduces
+    the host plans entry for entry, the refine is the same kernel over the
+    same store and the merge order is the shards' order; the delta is
+    merged last on both.
 
 On both placements the answer accumulates on the fleet's device (global
 ids remapped there, ``merge_topk`` there) and is copied to the host once,
@@ -91,6 +92,7 @@ from repro_torch.core.refine import (PAD_DIST, dispatch_refine, merge_topk,
                                      refine)
 from repro_torch.distributed.store import concat_stores
 from repro_torch.fleet.router import SignatureRouter
+from repro_torch.launch.mesh import as_mesh
 from repro_torch.obs import REGISTRY, TRACER
 from repro_torch.serve.knn_engine import PlanCache
 from repro_torch.utils.config import ClimberConfig
@@ -105,11 +107,25 @@ class FleetDraws:
 
     :meth:`build` returns a shard build's ``(sample_idx, pivot_idx)`` for
     :func:`repro_torch.core.index.build_index`; :meth:`router` the router's
-    ``[r]`` pivot indices into its sample.  This default seeds a CPU
+    pivot indices into its sample.  This default seeds a CPU
     ``torch.Generator`` from ``(seed, fold)``; a subclass may replay
     another package's draws (the parity tests replay
     ``jax.random.fold_in(PRNGKey(seed), fold)``).
+
+    ``pivot_method`` picks how the fleet's builds and its router select
+    pivots: ``"random"`` (``pivot_idx`` is ``[r]`` rows of the sample) or
+    ``"maxmin"`` (farthest-point; ``pivot_idx`` is the single start row).
     """
+
+    def __init__(self, pivot_method: str = "random"):
+        if pivot_method not in ("random", "maxmin"):
+            raise ValueError(f"unknown pivot selection method {pivot_method!r}")
+        self.pivot_method = pivot_method
+
+    def _pivots(self, g: torch.Generator, n: int, r: int):
+        if self.pivot_method == "maxmin":
+            return torch.randint(n, (), generator=g)
+        return torch.randperm(n, generator=g)[:r]
 
     @staticmethod
     def _generator(*words: int) -> torch.Generator:
@@ -120,10 +136,10 @@ class FleetDraws:
         g = self._generator(seed, fold, 0)
         s = sample_size(n_rec, cfg)
         sample_idx = torch.randperm(n_rec, generator=g)[:s]
-        return sample_idx, torch.randperm(s, generator=g)[:cfg.num_pivots]
+        return sample_idx, self._pivots(g, s, cfg.num_pivots)
 
     def router(self, seed: int, n_sample: int, r: int):
-        return torch.randperm(n_sample, generator=self._generator(seed, 0, 1))[:r]
+        return self._pivots(self._generator(seed, 0, 1), n_sample, r)
 
 
 @dataclass(frozen=True)
@@ -293,7 +309,8 @@ class DeltaShard:
         sample_idx, pivot_idx = self._draws.build(self._seed, n, n, self.cfg)
         self.index = build_index(torch.from_numpy(self.data), self.cfg,
                                  device=self.device, sample_idx=sample_idx,
-                                 pivot_idx=pivot_idx)
+                                 pivot_idx=pivot_idx,
+                                 pivot_method=self._draws.pivot_method)
         self.rebuilds += 1
 
     def _scatter(self, batch: np.ndarray, base: int) -> bool:
@@ -397,19 +414,6 @@ def _frame_nbytes(gids: np.ndarray, batch: np.ndarray) -> int:
     return _HEADER.size + gids.size * 4 + batch.size * 4
 
 
-def _as_mesh(mesh) -> Optional[List[torch.device]]:
-    """A mesh as a list of torch devices; only one device is supported."""
-    if mesh is None:
-        return None
-    devices = [torch.device(d) for d in
-               (mesh if isinstance(mesh, (list, tuple)) else [mesh])]
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"a mesh of {len(devices)} devices: the port's stacked placement "
-            "runs on one card; multi-GPU placement is ROADMAP queue 1 item 4")
-    return devices
-
-
 class IndexFleet:
     """Several CLIMBER shards + a streaming delta behind one query surface.
 
@@ -417,8 +421,9 @@ class IndexFleet:
       cfg: fleet configuration.
       device: where the shards live and run (``None`` → ``cuda``, raising
         when there is no card; pass ``"cpu"`` for the plain path).
-      mesh: a list of one torch device for the stacked placement (makes
-        ``placement="mesh"`` the default).
+      mesh: a :class:`~repro_torch.launch.DeviceMesh` or a device list
+        for the mesh placement (makes ``placement="mesh"`` the default);
+        ``scan_exact`` also shards over it.
       storage_dir: attach durable storage (see :meth:`attach_storage`).
       draws: the random-draw hook (:class:`FleetDraws` by default).
     """
@@ -439,7 +444,7 @@ class IndexFleet:
         self._next_gid = 0
         self._seal_count = 0
         self._merge_count = 0
-        self.mesh = _as_mesh(mesh)
+        self.mesh = as_mesh(mesh)
         self._placement = None          # lazily built MeshFleetPlacement
         self._placement_epoch = 0       # bumps with every sealed-set change
         self._plan_cache = PlanCache(cfg.plan_cache_size)
@@ -505,11 +510,13 @@ class IndexFleet:
 
     # -- stacked placement ------------------------------------------------
     def attach_mesh(self, mesh) -> None:
-        """Enable the stacked placement on ``mesh`` (a list of one torch
-        device) and make it the default; the stores are stacked lazily on
-        the next ``placement="mesh"`` query."""
+        """Enable the mesh placement on ``mesh`` (a
+        :class:`~repro_torch.launch.DeviceMesh` or a device list of any
+        length) and make it the default; the fleet is laid out lazily on
+        the next ``placement="mesh"`` query.  The placement epoch advances,
+        so no cached plan of the old layout is replayed."""
         with self._lock:
-            self.mesh = _as_mesh(mesh)
+            self.mesh = as_mesh(mesh)
             self._invalidate_placement()
 
     def _invalidate_placement(self) -> None:
@@ -688,7 +695,8 @@ class IndexFleet:
                                    dtype=torch.float32, device=self.device)
             self.router = SignatureRouter.from_sample(
                 head, self.cfg.shard_cfg,
-                pivot_idx=self.draws.router(self.cfg.seed, len(head), r))
+                pivot_idx=self.draws.router(self.cfg.seed, len(head), r),
+                pivot_method=self.draws.pivot_method)
 
     def _build_shard_index(self, data, fold: int) -> ClimberIndex:
         """Deterministic INX build for a fleet member (no lock needed);
@@ -698,7 +706,8 @@ class IndexFleet:
                                                  self.cfg.shard_cfg)
         index = build_index(torch.as_tensor(data), self.cfg.shard_cfg,
                             device=self.device, sample_idx=sample_idx,
-                            pivot_idx=pivot_idx)
+                            pivot_idx=pivot_idx,
+                            pivot_method=self.draws.pivot_method)
         synchronize(self.device)
         return index
 
@@ -998,8 +1007,8 @@ class IndexFleet:
                            best_d: torch.Tensor, best_g: torch.Tensor,
                            touched: np.ndarray, scanned: np.ndarray,
                            stage: dict, epoch: int) -> None:
-        """The stacked pass: featurize → descent → plan → refine → merge for
-        every shard on the card (``MeshFleetPlacement.query``), routing as a
+        """The mesh pass: featurize → descent → plan → refine → merge for
+        every shard on its slot (``MeshFleetPlacement.query``), routing as a
         plan mask; plan rows are memoised under ``(epoch, variant, query
         bytes)`` and a batch whose queries all hit runs the refine-only
         :meth:`MeshFleetPlacement.dispatch`.  Variants without a device
@@ -1026,7 +1035,7 @@ class IndexFleet:
             with TRACER.span("fleet.refine", path="mesh") as sp_ref:
                 dist, gid = pl.dispatch(queries, spm, lo, hi, k,
                                         use_kernel=use_kernel)
-                synchronize(self.device)
+                synchronize(dist.device)
             stage["refine_ms"] += sp_ref.duration_ms
         else:
             # the stacked pass plans on the card, inseparably from refine
@@ -1099,7 +1108,7 @@ class IndexFleet:
         with TRACER.span("fleet.refine", path="mesh-hostplan") as sp_ref:
             dist, gid = pl.dispatch(queries, sp, lo, hi, k,
                                     use_kernel=use_kernel)
-            synchronize(self.device)
+            synchronize(dist.device)
         stage["refine_ms"] += sp_ref.duration_ms
         best_d.copy_(dist)
         best_g.copy_(gid)
@@ -1251,13 +1260,16 @@ class IndexFleet:
         return concat_stores(stores, gid_maps) if stores else None
 
     def scan_exact(self, queries, k: int = 0, *,
-                   use_kernel: Optional[bool] = None
+                   use_kernel: Optional[bool] = None, mesh=None
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Exact kNN as ONE refine over the union store (every shard and
         delta store, global ids remapped, fused by ``concat_stores``) —
         equal to exhaustive routing + the exhaustive variant.  The union is
-        a transient copy of every store.  Returns ``(dist, gid)`` host
-        arrays with the ``PAD_DIST`` / ``-1`` sentinel."""
+        a transient copy of every store.  ``mesh`` (default: the attached
+        mesh, if any) shards the union's partition axis over its slots
+        (``refine_sharded``), with the same answer bit for bit.  Returns
+        ``(dist, gid)`` host arrays with the ``PAD_DIST`` / ``-1``
+        sentinel."""
         if torch.is_tensor(queries):
             queries = queries.cpu().numpy()
         queries = np.ascontiguousarray(queries, dtype=np.float32)
@@ -1268,8 +1280,10 @@ class IndexFleet:
                     np.full((len(queries), k), -1, np.int32))
         sel, lo, hi = exhaustive_selection(union.num_partitions, len(queries),
                                            self.device)
+        mesh = self.mesh if mesh is None else as_mesh(mesh)
         dist, gid = dispatch_refine(union, torch.as_tensor(queries, device=self.device),
-                                    sel, lo, hi, k, use_kernel=use_kernel)
+                                    sel, lo, hi, k, mesh=mesh,
+                                    use_kernel=use_kernel)
         return _to_host(dist), _to_host(gid)
 
     def audit_routing(self, queries, k: int = 0, *,

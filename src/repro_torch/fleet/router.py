@@ -22,7 +22,8 @@ through the ``paa`` and ``pivot_rank`` kernels; summaries, scores and
 every routing rule run on the host in numpy, in the JAX package's
 arithmetic, so the same pivots and data give the same scores.  The
 reference pivots are rows of the sample picked by index (``pivot_idx``),
-which the fleet draws through its draw hook.
+which the fleet draws through its draw hook; with
+``pivot_method="maxmin"`` the hook draws the farthest-point start row.
 
 A global top-``fanout`` constant spends the same budget on every query,
 which is exactly what the Hydra evaluations show collapsing recall: easy
@@ -44,6 +45,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.pivots import select_pivots
 from repro_torch.core.signatures import decay_weights, weighted_onehot
 from repro_torch.kernels import ops
 from repro_torch.utils.config import ClimberConfig
@@ -63,15 +65,20 @@ class SignatureRouter:
 
     @classmethod
     def from_sample(cls, sample: torch.Tensor, cfg: ClimberConfig, *,
-                    pivot_idx) -> "SignatureRouter":
-        """Build the reference pivots from the first data the fleet sees:
-        the PAA rows ``pivot_idx`` (``[r]``) of ``sample``, on its device."""
+                    pivot_idx, pivot_method: str = "random"
+                    ) -> "SignatureRouter":
+        """Build the reference pivots from the first data the fleet sees,
+        on its device: the PAA rows ``pivot_idx`` (``[r]``) of ``sample``,
+        or with ``pivot_method="maxmin"`` the farthest-point pivots from
+        the single row ``pivot_idx``."""
         z = ops.paa(sample.float(), cfg.paa_segments)
         idx = torch.as_tensor(np.asarray(pivot_idx, np.int64), device=z.device)
-        if idx.shape != (cfg.num_pivots,):
+        want = () if pivot_method == "maxmin" else (cfg.num_pivots,)
+        if idx.shape != want:
             raise ValueError(f"pivot_idx has shape {tuple(idx.shape)}, "
-                             f"expected ({cfg.num_pivots},)")
-        return cls(z[idx].contiguous(), cfg)
+                             f"expected {want}")
+        return cls(select_pivots(z, cfg.num_pivots, idx=idx,
+                                 method=pivot_method).contiguous(), cfg)
 
     @property
     def num_shards(self) -> int:

@@ -1,0 +1,4 @@
+"""Device meshes for the port (``repro.launch``'s counterpart)."""
+from repro_torch.launch.mesh import DeviceMesh, as_mesh, make_mesh
+
+__all__ = ["DeviceMesh", "make_mesh", "as_mesh"]

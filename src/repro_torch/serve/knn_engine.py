@@ -48,6 +48,8 @@ from repro_torch.core.index import ClimberIndex
 from repro_torch.core.query import (candidates_scanned, default_slot_budget,
                                     get_planner, plan as plan_queries)
 from repro_torch.core.refine import dispatch_refine, resolve_use_kernel
+from repro_torch.distributed.store import shard_store
+from repro_torch.launch.mesh import as_mesh
 from repro_torch.obs import REGISTRY, TRACER
 from repro_torch.obs.tracer import TraceContext
 from repro_torch.serve import api
@@ -527,8 +529,12 @@ class ClimberEngine(BatchedServingLoop):
 
     These may instead arrive bundled in one :class:`api.ServingConfig` via
     ``config=`` (exclusive with the individual keyword arguments).
-    ``mesh=`` (the JAX package's sharded refine) is refused: the port's
-    refine is single-device.
+
+    ``mesh=`` (a :class:`~repro_torch.launch.DeviceMesh` or a device list)
+    lays the store out over the mesh once, here (``shard_store``: views on
+    the store's own device, one copy on another), and every tick refines
+    sharded (``refine_sharded``), equal to the one-device engine bit for
+    bit.  Featurize and plan stay on the index's device.
     """
 
     _CONFIG_KEYS = ("batch_size", "variant", "k", "use_kernel",
@@ -537,8 +543,6 @@ class ClimberEngine(BatchedServingLoop):
     def __init__(self, index: ClimberIndex, *,
                  config: Optional[api.ServingConfig] = None, mesh=None,
                  **kwargs):
-        if mesh is not None:
-            raise NotImplementedError("the port's engine is single-device")
         cfg = api.resolve_config(config, kwargs, self._CONFIG_KEYS)
         self.config = cfg
         get_planner(cfg.variant)             # fail fast on unknown variants
@@ -555,6 +559,9 @@ class ClimberEngine(BatchedServingLoop):
             max_slots = default_slot_budget(index, cfg.variant)
         self.max_slots = max_slots
         self.store = index.store
+        self.mesh = as_mesh(mesh)
+        self._slots = shard_store(index.store, self.mesh) \
+            if self.mesh is not None and self.mesh.size > 1 else None
         self.plan_cache_size = cfg.plan_cache_size
         # signature bytes → (sel_part, sel_lo, sel_hi, touched, scanned) rows
         self._plan_cache = PlanCache(cfg.plan_cache_size)
@@ -571,7 +578,8 @@ class ClimberEngine(BatchedServingLoop):
 
     def _refine(self, queries, sel_part, sel_lo, sel_hi):
         return dispatch_refine(self.store, queries, sel_part, sel_lo, sel_hi,
-                               self.k, use_kernel=self.use_kernel)
+                               self.k, mesh=self.mesh,
+                               use_kernel=self.use_kernel, slots=self._slots)
 
     def _plan_batch(self, p4r: torch.Tensor, nlive: int):
         """Plan a tick's batch through the signature LRU: all live rows
@@ -622,7 +630,7 @@ class ClimberEngine(BatchedServingLoop):
         t2 = time.perf_counter()
         with TRACER.span("query.refine"):
             dist, gid = self._refine(qb, sel_part, sel_lo, sel_hi)
-            synchronize(dev)
+            synchronize(dist.device)
         t3 = time.perf_counter()
         self.stats.featurize_s += t1 - t0
         self.stats.plan_s += t2 - t1

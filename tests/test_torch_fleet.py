@@ -370,5 +370,14 @@ def test_fleet_engine_equals_query(fleets):
     eng = FleetEngine(port, sentinel_rate=0.1)       # the sentinel is ported
     assert port.sentinel is eng.sentinel and eng.sentinel.sample_rate == 0.1
     port.sentinel = None                             # the fixture is shared
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.attach_mesh(["cpu", "cpu"])
+    # a mesh of two slots (S = 3 shards padded to 4) serves the same answers
+    dh, gh, _ = port.query(queries, K, placement="host")
+    port.attach_mesh(["cpu", "cpu"])
+    try:
+        assert port.mesh.size == 2
+        dist, gid, _ = FleetEngine(port, batch_size=4, k=K).run(queries)
+        assert port._placement.num_slots == 4
+        np.testing.assert_array_equal(gid, gh)
+        np.testing.assert_array_equal(dist, dh)
+    finally:
+        port.attach_mesh(["cpu"])

@@ -25,8 +25,9 @@ from repro.fleet.lifecycle.snapshot import _FOREST_ARRAYS  # noqa: E402
 from repro.utils.config import ClimberConfig as JConfig  # noqa: E402
 from repro_torch.core import query as tq  # noqa: E402
 from repro_torch.core.index import index_from_arrays  # noqa: E402
-from repro_torch.core.refine import PAD_DIST, dispatch_refine, merge_topk  # noqa: E402
+from repro_torch.core.refine import PAD_DIST, dispatch_refine, merge_topk, refine  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import make_mesh  # noqa: E402
 from repro_torch.serve import ClimberEngine, QueryRequest, ServingConfig  # noqa: E402
 from repro_torch.utils.config import ClimberConfig as TConfig  # noqa: E402
 
@@ -147,8 +148,13 @@ def test_engine_queue_cache_and_config(indexes):
         engine.run(queries, k=11)
     with pytest.raises(TypeError):
         ClimberEngine(port, config=ServingConfig(), batch_size=3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="not a mesh"):
         ClimberEngine(port, mesh=object())
+    # on a mesh of two slots the engine answers as on one device
+    one = ClimberEngine(port, batch_size=4, k=10).run(queries)
+    two = ClimberEngine(port, batch_size=4, k=10, mesh=["cpu", "cpu"]).run(queries)
+    np.testing.assert_array_equal(two[1], one[1])
+    np.testing.assert_array_equal(two[0], one[0])
 
 
 def test_engine_without_plan_cache_matches(indexes):
@@ -193,11 +199,20 @@ def test_compact_plan_is_lossless_at_budget(indexes):
 
 
 def test_dispatch_refine_refuses_a_mesh(indexes):
+    """``dispatch_refine`` refuses what is not a mesh; on a one-device mesh
+    it is ``refine``."""
     _, port, queries = indexes
     z = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="not a mesh"):
         dispatch_refine(port.store, torch.as_tensor(queries[:1]), z, z, z, 5,
                         mesh=object())
+    q = torch.as_tensor(queries)
+    qp = tq.plan(port, port.featurize(q)[0], variant="adaptive")
+    args = (port.store, q, qp.sel_part, qp.sel_lo, qp.sel_hi, 10)
+    want = refine(*args)
+    for mesh in (["cpu"], make_mesh(1, ["cpu"])):
+        got = dispatch_refine(*args, mesh=mesh)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 MERGE_CASES = {

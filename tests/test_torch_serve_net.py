@@ -467,10 +467,14 @@ def test_overlap_drain_and_refusal_after_shutdown(fleet, corpus):
         assert len(results) == 12 and all(isinstance(r, api.QueryResult)
                                           for r in results)
         assert server.overlap_admissions > 0
+        # the batch goes out as two frames: stop only once the server has
+        # admitted both (``_pending`` can fall back to 0 between them)
+        admitted = server._n_queries.value + 2
         tail = threading.Thread(target=pipelined)
         tail.start()
         deadline = time.monotonic() + WAIT
-        while server._pending == 0 and tail.is_alive() and time.monotonic() < deadline:
+        while server._n_queries.value < admitted and tail.is_alive() \
+                and time.monotonic() < deadline:
             time.sleep(0.002)
     finally:
         stop()
