@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's six paths once on one NVIDIA card, at the paper's
-configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10, c=3000,
-K=500), with every kernel's launch count zeroed just before each path and
-read just after it:
+Drives the port's seven paths once on one NVIDIA card, the first six at
+the paper's configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10,
+c=3000, K=500), with every kernel's launch count zeroed just before each
+path and read just after it:
 
 1. **serve**: generates a z-normalised random-walk dataset on the card from
    ``--seed``, builds the CLIMBER index on the card, and serves queries
@@ -84,6 +84,43 @@ read just after it:
    one Dss chunk of the sweep (64 queries × 2,048 series), and
    ``refine_topk`` on shard 0's exhaustive and spend-4 plans.
 
+7. **lm**, the LM serving plane, after every earlier path's data is
+   freed: (a) internlm2-1.8b (``LM_ARCH``) at its full config, bf16
+   parameters from a seeded generator, a lone request through ``Engine``
+   equal token for token to a ``prefill`` + ``decode_step`` loop, then
+   ``Engine(slots=8, max_len=512)`` draining 32 requests (prompt lengths
+   drawn in 32-256 among those the chunked prefill accepts, 32 new tokens
+   each), and ``decode_step`` against ``forward`` at the last of 256
+   positions of 8 rows (the greedy token equal where the top-1/top-2 gap
+   exceeds 0.3, max |Δ| reported); (b) the kNN-LM of
+   ``examples/knn_lm.py`` at that width: a datastore of 32 steps
+   (half the example's 2^20 rows: the index's dense store pads every
+   partition to the fullest, 92.8 GB at 2^20 rows of these skewed states) ×
+   16 × 1,023 hidden-state proxies (``logits[..., :d_model]``, next token
+   as label) from ``TokenPipeline``, a CLIMBER index over it on the card
+   (n=2048, w=16, r=48, m=6, c=256, K=16, adaptive 4X), 64 next-token
+   queries of 256-token contexts through ``knn_query`` and the example's
+   interpolation (λ = 0.25, T = 1): each mixture sums to 1 within 1e-3,
+   the answer equals the plain refine of its plan (gids exact), and
+   recall@16 is measured against Dss over the whole datastore, and, after
+   the path's counts are read, split by cause: recall@16 at spend 4 and
+   with the exhaustive plan over the same index, and where the true
+   neighbours rank among all rows by PAA-16 distance; (c), run
+   before (b), every other architecture at full width, one at a time
+   (mistral-large-123b cut to 4 of 88 layers, llama-3.2-vision-90b to 10
+   of 100: one card's 80 GB), each an ``Engine`` drain of 2 requests of
+   256 tokens and 8 new tokens, and decode against forward as in (a) (on
+   one 8-token prompt for the capacity-dropping MoE archs; one SSD chunk
+   for the SSM archs; without RoPE for encdec, whose decode ropes its
+   cross-attention query at position 0 as the reference does).  Each
+   architecture, and (a)'s, also holds decode against forward in fp32 at
+   full width, every logit within 1e-3·(1+|logit|): at full depth where
+   its fp32 weights fit in 24 GB, else at its shallowest (2 layers, or one
+   hybrid / vlm group).
+   After its counts are read, ``paa``, ``pivot_rank`` (m = 6),
+   ``refine_topk`` (n = 2048, K = 16) and ``pairwise_l2`` are held against
+   their plain versions and timed at the path's shapes.
+
 Then, off the paths, it holds each CUDA kernel against its plain PyTorch
 version on the same inputs at the paths' shapes, times both with CUDA
 events (and the one PyTorch call that computes the same function, where
@@ -103,7 +140,7 @@ JSON report there.
 
 Usage: ``python3 chip_smoke.py [--seed 0] [--num 4194304] [--queries 256]
 [--other-num 1048576] [--tenant-shard 262144] [--fleet-shard 1048576]
-[--frontier-shard 1048576] [--report PATH]``
+[--frontier-shard 1048576] [--lm-smoke] [--report PATH]``
 from the repository root (it puts ``src/`` on ``sys.path`` itself).  It
 needs a CUDA card and ``nvcc``; without a card it exits non-zero before
 printing any result.
@@ -214,6 +251,138 @@ def l2_check(label, q, x):
         raise SystemExit(f"{label}: |Δd²| {float(err.max())} exceeds "
                          f"1e-5·(‖q‖²+‖x‖²)")
     return float(err.max())
+
+
+def cuda_ms(fn, iters=5, warmup=2):
+    """Mean CUDA-event milliseconds of ``fn()`` over ``iters`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, kernel, iters=20):
+    """Mean device time of the kernels named ``*kernel*`` per call of
+    ``fn``, from a profiler trace: at a small shape the event timing is the
+    host's launch cost, not the kernel's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in pr.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name)
+    return us / 1e3 / iters if us else None
+
+
+def pivot_rank_check(z, piv, m):
+    """``pivot_rank`` against its plain version: rows may differ only at
+    near-ties, within a distance gap of 1e-5·(‖x‖²+‖p‖²).  Returns (rows
+    differing, gap)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pivot_rank import pivot_rank_plain
+    s_k = ops.pivot_rank(z, piv, m)
+    s_p = pivot_rank_plain(z, piv, m)
+    bad = (s_k != s_p).any(dim=1).nonzero()[:, 0]
+    gap = 0.0
+    if bad.numel():
+        zb = z[bad].double()
+        d64 = ((zb[:, None, :] - piv.double()[None]) ** 2).sum(-1)   # exact
+        dk = torch.gather(d64, 1, s_k[bad].long())
+        dp = torch.gather(d64, 1, s_p[bad].long())
+        gap = float((dk - dp).abs().max())
+        tol = 1e-5 * float((zb * zb).sum(-1).max() + (piv * piv).sum(-1).max())
+        if gap > tol:
+            raise SystemExit(f"pivot_rank: {bad.numel()} rows differ with a "
+                             f"distance gap {gap} > {tol}")
+    say(f"pivot_rank: {bad.numel()} of {z.shape[0]} rows differ from the plain "
+        f"version (m={m}), all within a distance gap of {gap:.3g}")
+    return int(bad.numel()), gap
+
+
+# One kernel row at any path's shapes: the check against the plain version,
+# CUDA-event times of kernel, plain version and library call, and the bound.
+
+def paa_row(x, w):
+    """``paa`` on ``x`` against its plain version (max abs err ≤ 1e-5);
+    the library call is ``x.view(B, w, n // w).mean(-1)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paa_kernel import paa_plain
+    b, n = x.shape
+    err = float((ops.paa(x, w) - paa_plain(x, w)).abs().max())
+    if not err <= 1e-5:
+        raise SystemExit(f"paa [{b}, {n}]: kernel vs plain max abs err {err} > 1e-5")
+    bms, bby = bound_ms(b * n * 4 + b * w * 4, b * n)
+    return {"max_abs_err": err, "ms": cuda_ms(lambda: ops.paa(x, w)),
+            "plain_ms": cuda_ms(lambda: paa_plain(x, w)), "bound_ms": bms,
+            "bound_by": bby, "library_ms": cuda_ms(lambda: x.view(b, w, n // w).mean(-1)),
+            "shape": f"[{b},{n}] -> [{b},{w}]"}
+
+
+def pivot_rank_row(z, piv, m, iters=5, warmup=2, plain_iters=5, plain_warmup=2):
+    """``pivot_rank`` on ``z`` against its plain version
+    (:func:`pivot_rank_check`), with the profiler's device time; the library
+    call, ``torch.topk`` of the plain distances, is timed only (its tie
+    order is not ``lax.top_k``'s)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain
+    (b, w), r = z.shape, piv.shape[0]
+    bad, gap = pivot_rank_check(z, piv, m)
+    bms, bby = bound_ms(b * w * 4 + r * w * 4 + b * m * 4, b * r * (2 * w + 3))
+    return {"rows_differing": bad, "max_abs_err": gap,
+            "ms": cuda_ms(lambda: ops.pivot_rank(z, piv, m), iters, warmup),
+            "device_ms": device_ms(lambda: ops.pivot_rank(z, piv, m), "pivot_rank"),
+            "plain_ms": cuda_ms(lambda: pivot_rank_plain(z, piv, m), plain_iters,
+                                plain_warmup),
+            "bound_ms": bms, "bound_by": bby,
+            "library_ms": cuda_ms(lambda: torch.topk(pivot_distances_plain(z, piv), m,
+                                                     dim=-1, largest=False, sorted=True),
+                                  plain_iters, plain_warmup),
+            "library_call": "torch.topk(pivot_distances_plain(z, piv), m, largest=False), "
+                            "TF32 off",
+            "shape": f"[{b},{w}] x [{r},{w}] -> [{b},{m}]"}
+
+
+def pairwise_l2_row(q, x, label):
+    """``pairwise_l2`` on ``q`` × ``x`` against its plain version
+    (:func:`l2_check`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.l2 import pairwise_l2_plain
+    (nq, n), c = q.shape, x.shape[0]
+    err = l2_check(label, q, x)
+    bms, bby = bound_ms(4 * (c * n + nq * n + nq * c), 2 * nq * c * n)
+    return {"max_abs_err": err, "ms": cuda_ms(lambda: ops.pairwise_l2(q, x)),
+            "plain_ms": cuda_ms(lambda: pairwise_l2_plain(q, x)),
+            "bound_ms": bms, "bound_by": bby,
+            "library_ms": cuda_ms(lambda: ((q * q).sum(-1, keepdim=True) - 2 * (q @ x.T)
+                                           + (x * x).sum(-1)[None, :]).clamp_min(0)),
+            "library_call": "(q2 - 2*(q @ x.T) + x2).clamp_min(0), TF32 off",
+            "shape": f"[{nq},{n}] x [{c},{n}] -> [{nq},{c}]"}
+
+
+def refine_bound(work, nq, mp, n, k):
+    """``refine_topk``'s bound on a partition-sorted plan of ``nq`` queries
+    and ``mp`` entries, from :func:`refine_work`'s counts: each distinct
+    kept record's row and norm and each live slot's tags read once, the
+    queries and the plan read, (d², gid) written; 2n + 3 operations a kept
+    (query, record) pair."""
+    return bound_ms(work["unique_kept_records"] * (4 * n + 4) + work["live_slots"] * 8
+                    + nq * n * 4 + 3 * nq * mp * 4 + nq * k * 8,
+                    work["kept_pairs"] * (2 * n + 3))
 
 
 def plain_exact_knn(queries, data, k, chunk=SCAN_CHUNK):
@@ -1280,6 +1449,415 @@ def frontier_path(args, dev, cfg, report) -> dict:
     return launches
 
 
+LM_KERNELS = ("paa", "pivot_rank", "refine_topk", "pairwise_l2")
+LM_ARCH = "internlm2-1.8b"                      # the engine's and the kNN-LM's model
+# depths cut to fit one card's 80 GB at bf16 (the other archs run in full)
+LM_DEPTH = {"mistral-large-123b": 4,            # of 88 layers
+            "llama-3.2-vision-90b": 10}         # of 100: 2 groups of 5
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 8, 512, 32, 32
+LM_DS_BATCH, LM_DS_SEQ = 16, 1024               # datastore pipeline
+# 32 of the 64 steps (2^20 rows) the example's scale would take: the store
+# pads every partition to the fullest, and these hidden states route
+# skewed (at 1,047,552 rows: 4,106 partitions of mean 255 rows, the fullest
+# 2,760, a 92.8 GB store; at 2^19: 2,059, 1,265, 21.3 GB); 2 in a rehearsal
+LM_DS_STEPS, LM_DS_FULL_STEPS, LM_DS_SMOKE_STEPS = 32, 64, 2
+LM_QUERIES, LM_CTX, LM_K, LM_LAMBDA, LM_TEMP = 64, 256, 16, 0.25, 1.0
+# rows of 256 tokens in each decode-vs-forward check: with 2 (seed 0, on an
+# H100), 5 of the 10 archs had no row whose top-1/top-2 gap exceeds 0.3,
+# so the bf16 rule tested nothing there
+LM_CHECK_ROWS = 8
+PREFILL_CHUNK = 64                              # the engine's prefill kv_chunk
+
+
+def lm_prompt_lengths(gen, n, lo=32, hi=256):
+    """``n`` prompt lengths in ``[lo, hi]`` drawn from ``gen``, among the
+    lengths the engine's chunked prefill accepts (the reference's
+    ``flash_attention`` needs the length divisible by its chunk count,
+    ``max(s // 64, 1)``)."""
+    import torch
+    ok = [s for s in range(lo, hi + 1) if s % max(s // PREFILL_CHUNK, 1) == 0]
+    return [ok[int(i)] for i in torch.randint(len(ok), (n,), generator=gen)]
+
+
+def decode_vs_forward(model, params, batch, label, atol=None):
+    """``prefill`` of all but the last token and one ``decode_step`` with
+    it, against ``forward`` at that position.  bf16 parameters
+    (``atol=None``): the greedy token equal wherever the forward's
+    top-1/top-2 gap exceeds 0.3 (twice the reference test's rtol = atol =
+    0.15), max |Δ| reported; fp32 parameters: every logit within
+    ``atol·(1+|forward|)``.  Logits must be finite.  Raises; returns the
+    numbers."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    full = model(params, batch)[:, s - 1].float()
+    _, cache = prefill(model, params, {**batch, "tokens": tokens[:, :s - 1]},
+                       max_len=s)
+    got = decode_step(model, params, cache, tokens[:, s - 1:])[0][:, 0].float()
+    if not (bool(torch.isfinite(full).all()) and bool(torch.isfinite(got).all())):
+        raise SystemExit(f"lm [{label}]: non-finite logits")
+    delta = (got - full).abs()
+    top2 = torch.sort(full, dim=-1).values[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    clear = gap > 0.3
+    out = {"rows": int(full.shape[0]), "prompt": s, "max_abs_delta": float(delta.max()),
+           "max_abs_logit": float(full.abs().max()),
+           "beyond_0.15": int((delta > 0.15 + 0.15 * full.abs()).sum()),
+           "max_gap": float(gap.max()), "rows_gap_over_0.3": int(clear.sum()),
+           "argmax_equal": int((got.argmax(-1) == full.argmax(-1)).sum())}
+    if atol is not None and bool((delta > atol * (1 + full.abs())).any()):
+        raise SystemExit(f"lm [{label}]: decode vs forward |Δ| {out['max_abs_delta']} "
+                         f"beyond {atol}·(1+|logit|)")
+    if bool((got.argmax(-1) != full.argmax(-1))[clear].any()):
+        raise SystemExit(f"lm [{label}]: greedy token differs where the gap exceeds 0.3")
+    return out
+
+
+FP32_CHECK_BYTES = 24e9         # fp32 weights the decode check runs at full depth
+
+
+def fp32_decode_check(cfg, batch, gen, dev, label):
+    """:func:`decode_vs_forward` at full width in fp32, every logit within
+    1e-3·(1+|logit|): at full depth where the fp32 weights take at most
+    ``FP32_CHECK_BYTES``, else at the shallowest depth the family has (one
+    hybrid or vlm group, else 2 layers and 2 encoder layers)."""
+    import torch
+    from repro_torch.models import Model, count_params
+    scfg = cfg
+    if count_params(Model(cfg).infos()) * 4 > FP32_CHECK_BYTES:
+        depth = {"hybrid": cfg.hybrid_attn_every, "vlm": cfg.cross_attn_every}
+        scfg = cfg.replace(num_layers=depth.get(cfg.family, 2),
+                           num_encoder_layers=min(cfg.num_encoder_layers, 2))
+    model = Model(scfg)
+    params = model.init(gen, dev, dtype=torch.float32)
+    batch = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+    with torch.no_grad():
+        out = decode_vs_forward(model, params, batch, f"{label} fp32", atol=1e-3)
+    del params
+    torch.cuda.empty_cache()
+    return dict(out, layers=scfg.num_layers)
+
+
+def drain_engine(model, params, prompts, new_tokens, slots, max_len, dev):
+    """Requests through ``Engine`` until drained: (engine, requests, wall s)."""
+    import numpy as np
+    from repro_torch.serve import Engine, Request
+    eng = Engine(model, params, slots=slots, max_len=max_len, device=dev)
+    reqs = [Request(rid=i, prompt=np.asarray(p, np.int32), max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    _, secs = sync_wall(lambda: eng.run_until_drained(max_ticks=100_000))
+    if eng.queue or not all(r.done for r in reqs):
+        raise SystemExit("lm: the engine did not drain")
+    return eng, reqs, secs
+
+
+def engine_row(eng, secs):
+    st = eng.stats
+    return {"requests": st.prefills, "ticks": st.ticks, "tokens": st.tokens,
+            "prefill_ms_per_request": st.prefill_s / max(st.prefills, 1) * 1e3,
+            "decode_ms_per_tick": st.decode_s / max(st.ticks, 1) * 1e3,
+            "generated_tokens_per_s": st.tokens / secs, "seconds": secs}
+
+
+def lm_path(args, dev, report):
+    """The LM serving plane (module docstring, item 7): (a) the engine at
+    ``LM_ARCH``'s full config, (c) every other architecture at full width,
+    one at a time, then (b) the kNN-LM over CLIMBER on (a)'s hidden states
+    (in that order, so that no model shares the card with the datastore and
+    its index); after the path's launch counts are read, (d) the four
+    kernels it ran against their plain versions at its shapes.  Every hard
+    check raises.  Returns the path's launch counts."""
+    import torch
+    from repro_torch.baselines import exact_knn
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core import build_index, knn_query
+    from repro_torch.data import TokenPipeline
+    from repro_torch.eval import recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.refine_topk import refine_work
+    from repro_torch.models import Model, count_params, decode_step, prefill
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.utils.config import ClimberConfig
+
+    out = report.setdefault("lm", {"arch": LM_ARCH, "smoke_widths": args.lm_smoke})
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    host_gen = torch.Generator().manual_seed(args.seed)
+    gb = lambda params: sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+
+    # ---- (a) the engine at full width --------------------------------------
+    cfg = get_config(LM_ARCH, smoke=args.lm_smoke)
+    model = Model(cfg)
+    params, init_s = sync_wall(lambda: model.init(gen, dev))
+    out["params"] = count_params(model.infos())
+    out["params_gb"] = gb(params)
+    say(f"lm: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}, vocab "
+        f"{cfg.vocab_size}): {out['params']:,} parameters, {out['params_gb']:.2f} GB "
+        f"bf16, initialised on the card in {init_s:.2f} s")
+    lens = lm_prompt_lengths(host_gen, LM_REQUESTS)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=host_gen).numpy()
+               for n in lens]
+    # a lone request through the engine ≡ a prefill + decode_step loop
+    eng1, (req,), _ = drain_engine(model, params, prompts[:1], LM_NEW, 1,
+                                   LM_MAX_LEN, dev)
+    with torch.no_grad():
+        logits, cache = prefill(model, params, {"tokens": torch.as_tensor(
+            prompts[0][None], device=dev)}, max_len=LM_MAX_LEN, kv_chunk=PREFILL_CHUNK)
+        loop = [int(torch.argmax(logits[0, -1]))]
+        while len(loop) < LM_NEW:
+            logits, cache = decode_step(model, params, cache, torch.tensor(
+                [[loop[-1]]], dtype=torch.int32, device=dev))
+            loop.append(int(torch.argmax(logits[0, -1])))
+    if req.generated != loop:
+        raise SystemExit(f"lm: a lone request's engine tokens differ from the "
+                         f"prefill + decode_step loop ({req.generated} vs {loop})")
+    say(f"lm: a lone {lens[0]}-token request through Engine == the prefill + "
+        f"decode_step loop, {LM_NEW} greedy tokens")
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, secs = drain_engine(model, params, prompts, LM_NEW, LM_SLOTS,
+                                   LM_MAX_LEN, dev)
+    if any(len(r.generated) != LM_NEW for r in reqs):
+        raise SystemExit("lm: a request stopped short of its new tokens")
+    out["engine"] = dict(engine_row(eng, secs), slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                         prompt_lengths=lens, new_tokens=LM_NEW,
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say(f"lm engine[{cfg.name}, {LM_SLOTS} slots, max_len {LM_MAX_LEN}]: "
+        + json.dumps({a: (round(b, 3) if isinstance(b, float) else b)
+                      for a, b in out["engine"].items() if a != "prompt_lengths"}))
+    pipe_q = TokenPipeline(cfg, global_batch=LM_CHECK_ROWS, seq_len=256, seed=args.seed,
+                           device=dev)
+    with torch.no_grad():
+        out["decode_vs_forward"] = decode_vs_forward(
+            model, params, {"tokens": pipe_q.batch_at(0)["tokens"][:, :256]}, cfg.name)
+    out["decode_vs_forward_fp32"] = fp32_decode_check(
+        cfg, {"tokens": pipe_q.batch_at(0)["tokens"][:, :256]}, gen, dev, cfg.name)
+    say(f"lm: decode_step == forward at the last of 256 positions: bf16 "
+        + json.dumps(out["decode_vs_forward"]) + "; fp32 at "
+        + json.dumps(out["decode_vs_forward_fp32"]))
+
+    # ---- (c) every other architecture at full width, one at a time ---------
+    out["archs"] = {}
+    out["reduced"] = {}
+    peaks = [torch.cuda.max_memory_allocated() / 1e9]          # (a)
+    for arch in ARCHS:
+        if arch == LM_ARCH:
+            continue
+        t = time.perf_counter()
+        acfg = get_config(arch, smoke=args.lm_smoke)
+        if arch in LM_DEPTH and not args.lm_smoke:
+            acfg = acfg.replace(num_layers=LM_DEPTH[arch])
+            out["reduced"][arch] = f"{LM_DEPTH[arch]} of {get_config(arch).num_layers} layers"
+        # capacity-dropping MoE routes a prompt and its prefill differently
+        # beyond 8 tokens (the reference's test holds no MoE arch to this)
+        b_rows, s_len = (1, 8) if acfg.family == "moe" else (LM_CHECK_ROWS, 256)
+        if acfg.family in ("ssm", "hybrid"):       # a prefill of s - 1 tokens
+            s_len = min(s_len, acfg.ssm_chunk)     # is one chunk of SSD
+        batch = TokenPipeline(acfg, global_batch=b_rows, seq_len=s_len, seed=args.seed,
+                              device=dev).batch_at(0)
+        batch["tokens"] = batch["tokens"][:, :s_len]
+        # the reference ropes a decoded token's cross-attention query at
+        # position 0, the forward's at its own: encdec decode equals forward
+        # only without RoPE (ROADMAP queue 3), so its checks run without it
+        check_cfg = acfg.replace(use_rope=False) if acfg.family == "encdec" else acfg
+        torch.cuda.reset_peak_memory_stats()
+        check_fp32 = fp32_decode_check(check_cfg, batch, gen, dev, arch)
+        amodel = Model(acfg)
+        aparams = amodel.init(gen, dev)
+        with torch.no_grad():
+            check = decode_vs_forward(Model(check_cfg), aparams, batch, arch)
+        plen = 256
+        ptoks = TokenPipeline(acfg, global_batch=2, seq_len=plen, seed=args.seed + 1,
+                              device=dev).batch_at(0)["tokens"][:, :plen].cpu().numpy()
+        # an encdec engine's prompts fill max_len (its cross cache's length)
+        max_len = plen if acfg.family == "encdec" else plen + 16
+        aeng, areqs, asecs = drain_engine(amodel, aparams, list(ptoks), 8, 2, max_len, dev)
+        row = {"family": acfg.family, "layers": acfg.num_layers,
+               "params": count_params(amodel.infos()), "params_gb": gb(aparams),
+               **engine_row(aeng, asecs),
+               "generated": [len(r.generated) for r in areqs],
+               "decode_vs_forward": check, "decode_vs_forward_fp32": check_fp32,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "seconds": time.perf_counter() - t}
+        out["archs"][arch] = row
+        peaks.append(row["peak_memory_gb"])
+        say(f"lm arch[{arch}]: " + json.dumps(
+            {a: (round(b, 3) if isinstance(b, float) else b) for a, b in row.items()}))
+        del amodel, aparams, aeng, batch
+        torch.cuda.empty_cache()
+    # ---- (b) the kNN-LM over CLIMBER (after (c): its datastore and index
+    # stay on the card for (d)) --------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    d = cfg.d_model
+    pipe = TokenPipeline(cfg, global_batch=LM_DS_BATCH, seq_len=LM_DS_SEQ,
+                         seed=args.seed, device=dev)
+    per = LM_DS_BATCH * (LM_DS_SEQ - 1)
+    steps = LM_DS_SMOKE_STEPS if args.lm_smoke else LM_DS_STEPS
+    rows = steps * per
+    datastore = torch.empty((rows, d), dtype=torch.float32, device=dev)
+    labels = torch.empty(rows, dtype=torch.int64, device=dev)
+
+    def fill():
+        with torch.no_grad():
+            for step in range(steps):
+                tokens = pipe.batch_at(step)["tokens"][:, :-1]
+                hidden = model(params, {"tokens": tokens})[..., :d]   # the example's proxy
+                datastore[step * per:(step + 1) * per] = hidden[:, :-1].reshape(-1, d)
+                labels[step * per:(step + 1) * per] = tokens[:, 1:].reshape(-1)
+
+    _, ds_s = sync_wall(fill)
+    ccfg = ClimberConfig(series_len=d, paa_segments=16, num_pivots=48, prefix_len=6,
+                         capacity=256, sample_frac=0.25, max_centroids=24, k=LM_K,
+                         candidate_groups=4, adaptive_factor=4)
+    index, build_s = sync_wall(lambda: build_index(datastore, ccfg, device=dev,
+                                                   generator=gen))
+    store = index.store
+    store_gb = sum(x.numel() * x.element_size() for x in store) / 1e9
+    ctx = TokenPipeline(cfg, global_batch=LM_QUERIES, seq_len=LM_DS_SEQ, seed=args.seed,
+                        device=dev).batch_at(99)["tokens"][:, :LM_CTX]
+    with torch.no_grad():
+        logits = model(params, {"tokens": ctx})[:, -1].float()
+    q = logits[:, :d].contiguous()
+    knn_query(index, q[:8], LM_K, variant="adaptive")               # warm-up
+    (dist, gid, qp), query_s = sync_wall(lambda: knn_query(index, q, LM_K,
+                                                           variant="adaptive"))
+    # the example's interpolation, its neighbour weights as a softmax over
+    # the valid neighbours (exp(-d/T) normalised, without underflow)
+    valid = gid >= 0
+    w = torch.softmax(torch.where(valid, -dist / LM_TEMP, float("-inf")), dim=-1)
+    w = torch.where(valid, w, 0.0)
+    p_lm = torch.softmax(logits, dim=-1)
+    knn_p = torch.zeros_like(p_lm).scatter_add_(1, labels[gid.clamp(min=0).long()], w)
+    mix = (1 - LM_LAMBDA) * p_lm + LM_LAMBDA * knn_p
+    sums = mix.sum(-1)
+    if not bool(((sums - 1).abs() <= 1e-3).all()):
+        raise SystemExit(f"lm: a mixed distribution sums to {float(sums.min())}"
+                         f"..{float(sums.max())}")
+    # knn_query ≡ the plain refine of the same plan: gids exact, d² within tol
+    order = torch.argsort(qp.sel_part, dim=-1, stable=True)
+    sp, lo, hi = (torch.gather(x, 1, order).to(torch.int32).contiguous()
+                  for x in (qp.sel_part, qp.sel_lo, qp.sel_hi))
+    d2_p, g_p, _ = plain_refine_chunked(store, q, sp, lo, hi, LM_K)
+    tol = 1e-5 * ((q * q).sum(-1, keepdim=True) + float(store.norms.max()))
+    d2_err = (dist.double() ** 2 - d2_p.double()).abs()
+    if not torch.equal(gid, g_p) or bool((d2_err > tol).any()):
+        raise SystemExit(f"lm: knn_query differs from the plain refine of its plan "
+                         f"({int((gid != g_p).any(1).sum())} queries' gids, max "
+                         f"|Δd²| {float(d2_err.max())})")
+    (d_ex, i_ex), dss_s = sync_wall(lambda: exact_knn(q, datastore, LM_K,
+                                                      chunk=SCAN_CHUNK))
+    recall = recall_at_k(gid, i_ex, LM_K, approx_dist=dist, exact_dist=d_ex)
+    out["knn_lm"] = {
+        "datastore_rows": rows, "datastore_gb": rows * d * 4 / 1e9,
+        "datastore_forward_s": ds_s, "build_s": index.build_seconds,
+        "build_wall_s": build_s, "P": store.num_partitions, "cap": store.capacity,
+        "G": index.num_groups, "store_gb": store_gb, "queries": LM_QUERIES,
+        "query_ms": query_s * 1e3,
+        "neighbours_per_query": float(valid.sum(1).float().mean()),
+        "mixed_argmax_differs": float((mix.argmax(-1) != p_lm.argmax(-1)).float().mean()),
+        "mixed_sum_max_dev": float((sums - 1).abs().max()),
+        "recall_at_16_vs_dss": recall, "dss_ms": dss_s * 1e3,
+        "plain_refine_max_abs_d2_err": float(d2_err.max()),
+        "mean_partitions_touched": float(qp.partitions_touched().float().mean())}
+    say(f"lm knn[{rows} rows x {d}]: " + json.dumps(
+        {a: (round(b, 4) if isinstance(b, float) else
+             {c: round(e, 3) for c, e in b.items()} if isinstance(b, dict) else b)
+         for a, b in out["knn_lm"].items()}))
+    say("lm: every mixed distribution sums to 1 within 1e-3; knn_query == the plain "
+        "refine of its plan (gids exact)")
+    out["reduced"]["knn_lm datastore"] = (
+        f"{steps} of {LM_DS_FULL_STEPS} steps ({rows:,} rows): the dense "
+        f"store at 2^20 rows is 92.8 GB")
+    del params, eng, eng1, cache, logits, p_lm, knn_p, mix
+
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out["seconds"] = time.perf_counter() - t_path
+    say(f"lm-path launches: {launches} ({out['seconds']:.1f} s)")
+    missing = [name for name in LM_KERNELS if launches[name] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the lm path: {missing}")
+
+    # ---- where the recall goes, and (d) the kernels at this path's shapes,
+    # both outside the counts -----------------------------------------------
+    out["knn_lm"]["recall_split"] = lm_recall_split(index, q, qp, datastore, i_ex, d_ex,
+                                                    ccfg.paa_segments)
+    say("lm knn recall split: " + json.dumps(out["knn_lm"]["recall_split"]))
+    kc = out["kernels"] = {}
+    w, m = ccfg.paa_segments, ccfg.prefix_len
+    x = datastore[:min(rows, 1 << 18)]
+    kc["paa"] = paa_row(x, w)
+    kc["pivot_rank"] = pivot_rank_row(ops.paa(x, w), index.pivots, m)
+    kc["pivot_rank"]["queries"] = pivot_rank_row(ops.paa(q, w), index.pivots, m, 50, 5,
+                                                 50, 5)
+    plan_rows = refine_plan_checks("lm", q, LM_K, [
+        ("adaptive", store, (qp.sel_part, qp.sel_lo, qp.sel_hi))])
+    work = refine_work(store.rec_dfs, store.rec_gid, sp, lo, hi)
+    bms, bby = refine_bound(work, LM_QUERIES, sp.shape[1], d, LM_K)
+    rt = lambda: ops.refine_topk(store.data, store.norms, store.rec_dfs, store.rec_gid,
+                                 q, sp, lo, hi, LM_K)
+    kc["refine_topk"] = dict(plan_rows["adaptive"], **work, shape=(
+        f"Q={LM_QUERIES} MP={sp.shape[1]} cap={store.capacity} n={d} k={LM_K}"),
+        ms=cuda_ms(rt), device_ms=device_ms(rt, "refine", iters=5),
+        plain_ms=cuda_ms(lambda: plain_refine_chunked(store, q, sp, lo, hi, LM_K),
+                         iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=bby)
+    kc["pairwise_l2"] = pairwise_l2_row(q, datastore[:SCAN_CHUNK],
+                                        "pairwise_l2 [lm Dss chunk]")
+    for name, row in kc.items():
+        say(f"{name} [lm]: " + json.dumps({a: (round(b, 5) if isinstance(b, float) else b)
+                                           for a, b in row.items()}, default=float))
+    out["peak_memory_gb"] = max(peaks + [torch.cuda.max_memory_allocated() / 1e9])
+    del datastore, labels, index, store, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_recall_split(index, q, qp, datastore, i_ex, d_ex, w):
+    """Where the kNN-LM's recall@16 goes.  The refine of a plan is exact
+    (held against the plain refine), so what is lost is lost in the
+    partitions a plan selects: recall at spend 4 (``adaptive_factor`` and K
+    × 4) and with the exhaustive plan over the same index (every row), and,
+    for the signature that routing reads, where the true neighbours rank
+    among all rows by PAA-``w`` distance — the share of them that the
+    nearest rows by PAA distance hold, as many rows as the adaptive (and
+    the spend-4) plan's partitions hold, is what any filter on that
+    signature could find at that spend."""
+    import torch
+    from repro_torch.core.query import (candidates_scanned, knn_query,
+                                        register_recall_target)
+    from repro_torch.eval import recall_at_k
+    from repro_torch.kernels.l2 import pairwise_l2_plain
+    from repro_torch.kernels.paa_kernel import paa_plain
+    register_recall_target(4.0, name="lm_spend4")
+    k = i_ex.shape[1]
+    split, scanned = {}, {"adaptive": candidates_scanned(qp, index.store)}
+    for label, variant in (("spend_4", "lm_spend4"), ("exhaustive", "exhaustive")):
+        dist, gid, plan = knn_query(index, q, k, variant=variant)
+        scanned[label] = candidates_scanned(plan, index.store)
+        split[label] = {"recall_at_16": recall_at_k(gid, i_ex, k, approx_dist=dist,
+                                                    exact_dist=d_ex),
+                        "rows_scanned": float(scanned[label].float().mean())}
+    d_paa = pairwise_l2_plain(paa_plain(q, w), paa_plain(datastore, w))   # [Q, rows]
+    rank = torch.searchsorted(torch.sort(d_paa, dim=-1).values,
+                              torch.gather(d_paa, 1, i_ex.long()))        # rows nearer
+    split["paa"] = {
+        "segments": w,
+        "true_neighbours_in_paa_top_16": float((rank < k).float().mean()),
+        "in_nearest_rows_of_adaptive_size": float(
+            (rank < scanned["adaptive"][:, None]).float().mean()),
+        "in_nearest_rows_of_spend_4_size": float(
+            (rank < scanned["spend_4"][:, None]).float().mean()),
+        "adaptive_rows_scanned": float(scanned["adaptive"].float().mean()),
+        "median_rank_share_of_rows": float(rank.float().median()) / datastore.shape[0]}
+    return split
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1294,6 +1872,9 @@ def main(argv=None) -> int:
                     help="series in each of the fleet's 4 tenant shards")
     ap.add_argument("--frontier-shard", type=int, default=1_048_576,
                     help="series in each shard of the recall-frontier sweep")
+    ap.add_argument("--lm-smoke", action="store_true",
+                    help="smoke widths for every LM architecture and a datastore "
+                         "of 2 steps (a CPU rehearsal)")
     ap.add_argument("--report", default=None,
                     help="also write the full JSON report to this path")
     args = ap.parse_args(argv)
@@ -1318,9 +1899,7 @@ def main(argv=None) -> int:
                                   mean_average_precision, perturbed_queries,
                                   recall_at_k, tenant_corpus)
     from repro_torch.kernels import _lib, ops
-    from repro_torch.kernels.l2 import pairwise_l2_plain, qdots_plain
-    from repro_torch.kernels.paa_kernel import paa_plain
-    from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain
+    from repro_torch.kernels.l2 import qdots_plain
     from repro_torch.kernels.refine_topk import (masked_distances, refine_topk,
                                                  refine_work, topk_flat)
     from repro_torch.serve import ClimberEngine
@@ -1549,121 +2128,30 @@ def main(argv=None) -> int:
     report["recall_at_k_exhaustive"] = hits / (EVAL_QUERIES * cfg.k)
 
     # ---- kernels vs plain versions, at the main path's shapes -----------
-    def cuda_ms(fn, iters=5, warmup=2):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
-
-    def device_ms(fn, kernel, iters=20):
-        """Mean device time of the kernels named ``*kernel*`` per call of
-        ``fn``, from a profiler trace: at a small shape the event timing
-        above is the host's launch cost, not the kernel's."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in pr.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and kernel in e.name)
-        return us / 1e3 / iters if us else None
-
     def ptxas_of(kernel):
         return {e: v for e, v in ptxas.items() if kernel in e}
 
     kernels = []
-    w, n, r, m, k = cfg.paa_segments, cfg.series_len, cfg.num_pivots, cfg.prefix_len, cfg.k
-    B = args.num
+    w, n, m, k = cfg.paa_segments, cfg.series_len, cfg.prefix_len, cfg.k
 
     # paa at the build's step-4 width (the whole dataset in one call)
-    z_k = ops.paa(data, w)
-    z_p = paa_plain(data, w)
-    err = float((z_k - z_p).abs().max())
-    if not err <= 1e-5:
-        raise SystemExit(f"paa: kernel vs plain max abs err {err} > 1e-5")
-    nbytes = B * n * 4 + B * w * 4
-    bms, bby = bound_ms(nbytes, B * n)
-    kernels.append({
-        "name": "paa", "route": "cuda", "source": "src/repro_torch/csrc/paa.cu",
-        "replaces": "src/repro/kernels/paa_kernel.py:42",
-        "launches": launches["paa"], "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.paa(data, w)),
-        "plain_ms": cuda_ms(lambda: paa_plain(data, w)),
-        "bound_ms": bms, "bound_by": bby,
-        "library_ms": cuda_ms(lambda: data.view(B, w, n // w).mean(-1)),
-        "shape": f"[{B},{n}] -> [{B},{w}]"})
-    del z_p
+    kernels.append(dict(
+        name="paa", route="cuda", source="src/repro_torch/csrc/paa.cu",
+        replaces="src/repro/kernels/paa_kernel.py:42", launches=launches["paa"],
+        **paa_row(data, w)))
 
     # pivot_rank over the dataset's PAA rows (step 4's work in one call)
     piv = index.pivots
-
-    def check_pivot_rank(z):
-        """Kernel vs plain: rows may differ only at near-ties, within a
-        distance gap of 1e-5·(‖x‖²+‖p‖²).  Returns (rows differing, gap)."""
-        s_k = ops.pivot_rank(z, piv, m)
-        s_p = pivot_rank_plain(z, piv, m)
-        bad = (s_k != s_p).any(dim=1).nonzero()[:, 0]
-        gap = 0.0
-        if bad.numel():
-            zb = z[bad].double()
-            d64 = ((zb[:, None, :] - piv.double()[None]) ** 2).sum(-1)   # exact
-            dk = torch.gather(d64, 1, s_k[bad].long())
-            dp = torch.gather(d64, 1, s_p[bad].long())
-            gap = float((dk - dp).abs().max())
-            tol = 1e-5 * float((zb * zb).sum(-1).max() + (piv * piv).sum(-1).max())
-            if gap > tol:
-                raise SystemExit(f"pivot_rank: {bad.numel()} rows differ with a "
-                                 f"distance gap {gap} > {tol}")
-        say(f"pivot_rank: {bad.numel()} of {z.shape[0]} rows differ from the plain "
-            f"version, all within a distance gap of {gap:.3g}")
-        return int(bad.numel()), gap
-
-    bad, gap = check_pivot_rank(z_k)
-
-    def pivot_rank_bound(rows):
-        return bound_ms(rows * w * 4 + r * w * 4 + rows * m * 4, rows * r * (2 * w + 3))
-
-    def library_rank(z):       # timed only: torch.topk's tie order is not lax.top_k's
-        return torch.topk(pivot_distances_plain(z, piv), m, dim=-1, largest=False,
-                          sorted=True)
-
-    bms, bby = pivot_rank_bound(B)
-    kernels.append({
-        "name": "pivot_rank", "route": "cuda",
-        "source": "src/repro_torch/csrc/pivot_rank.cu",
-        "replaces": "src/repro/kernels/pivot_rank.py:59",
-        "launches": launches["pivot_rank"], "max_abs_err": gap,
-        "ms": cuda_ms(lambda: ops.pivot_rank(z_k, piv, m)),
-        "plain_ms": cuda_ms(lambda: pivot_rank_plain(z_k, piv, m), iters=2, warmup=1),
-        "bound_ms": bms, "bound_by": bby,
-        "library_ms": cuda_ms(lambda: library_rank(z_k), iters=2, warmup=1),
-        "library_call": "torch.topk(pivot_distances_plain(z, piv), m, largest=False), "
-                        "TF32 off",
-        "rows_differing": bad,
-        "shape": f"[{B},{w}] x [{r},{w}] -> [{B},{m}]",
-        "ptxas": ptxas_of(f"pivot_rank_kernel<{w},")})
+    z_k = ops.paa(data, w)
+    kernels.append(dict(
+        name="pivot_rank", route="cuda", source="src/repro_torch/csrc/pivot_rank.cu",
+        replaces="src/repro/kernels/pivot_rank.py:59", launches=launches["pivot_rank"],
+        **pivot_rank_row(z_k, piv, m, plain_iters=2, plain_warmup=1),
+        ptxas=ptxas_of(f"pivot_rank_kernel<{w},")))
     del z_k
     # and at the serving shape: one tick's featurize, 64 query rows
     z64 = ops.paa(q64, w)
-    bad64, gap64 = check_pivot_rank(z64)
-    bms, bby = pivot_rank_bound(64)
-    kernels[-1]["serve_shape"] = {
-        "rows_differing": bad64, "max_abs_err": gap64,
-        "shape": f"[64,{w}] x [{r},{w}] -> [64,{m}]",
-        "ms": cuda_ms(lambda: ops.pivot_rank(z64, piv, m), iters=50, warmup=5),
-        "device_ms": device_ms(lambda: ops.pivot_rank(z64, piv, m), "pivot_rank"),
-        "plain_ms": cuda_ms(lambda: pivot_rank_plain(z64, piv, m), iters=50, warmup=5),
-        "library_ms": cuda_ms(lambda: library_rank(z64), iters=50, warmup=5),
-        "bound_ms": bms, "bound_by": bby}
+    kernels[-1]["serve_shape"] = pivot_rank_row(z64, piv, m, 50, 5, 50, 5)
     say(f"pivot_rank at [64,{w}]: {json.dumps(kernels[-1]['serve_shape'])}")
 
     # refine_topk on three plans: one serving tick (queries 0-63, adaptive),
@@ -1707,9 +2195,7 @@ def main(argv=None) -> int:
         work = refine_work(store.rec_dfs, store.rec_gid, sp[:, -live_w:],
                            lo_[:, -live_w:], hi_[:, -live_w:])
         mp = sp.shape[1]
-        nbytes = (work["unique_kept_records"] * (4 * n + 4) + work["live_slots"] * 8
-                  + qs.shape[0] * n * 4 + 3 * qs.shape[0] * mp * 4 + qs.shape[0] * k * 8)
-        bms, bby = bound_ms(nbytes, work["kept_pairs"] * (2 * n + 3))
+        bms, bby = refine_bound(work, qs.shape[0], mp, n, k)
         rt_plans[label] = dict(
             work, mp=mp, live_width=live_w, max_abs_err=err, gid_queries_differ=differ,
             ms=cuda_ms(lambda: refine_topk(store.data, store.norms, store.rec_dfs,
@@ -1749,23 +2235,13 @@ def main(argv=None) -> int:
 
     # pairwise_l2 on one Dss chunk: 64 queries x 2^20 series
     x_c = data[:SCAN_CHUNK]
-    c_n = x_c.shape[0]
-    l2_err = l2_check("pairwise_l2", q64, x_c)
-    say(f"pairwise_l2: max |Δd²| {l2_err:.3g} over [64, {c_n}] (n={n})")
-    bms, bby = bound_ms(4 * (c_n * n + 64 * n + 64 * c_n), 2 * 64 * c_n * n)
-    kernels.append({
-        "name": "pairwise_l2", "route": "cuda", "source": "src/repro_torch/csrc/l2.cu",
-        "replaces": "src/repro/kernels/l2.py:60", "path": "eval",
-        "launches": eval_launches["pairwise_l2"], "max_abs_err": l2_err,
-        "ms": cuda_ms(lambda: ops.pairwise_l2(q64, x_c)),
-        "plain_ms": cuda_ms(lambda: pairwise_l2_plain(q64, x_c)),
-        "bound_ms": bms, "bound_by": bby,
-        "library_ms": cuda_ms(lambda: ((q64 * q64).sum(-1, keepdim=True)
-                                       - 2 * (q64 @ x_c.T)
-                                       + (x_c * x_c).sum(-1)[None, :]).clamp_min(0)),
-        "library_call": "(q2 - 2*(q @ x.T) + x2).clamp_min(0), TF32 off",
-        "shape": f"[64,{n}] x [{c_n},{n}] -> [64,{c_n}]",
-        "ptxas": ptxas_of("pairwise_l2_kernel")})
+    kernels.append(dict(
+        name="pairwise_l2", route="cuda", source="src/repro_torch/csrc/l2.cu",
+        replaces="src/repro/kernels/l2.py:60", path="eval",
+        launches=eval_launches["pairwise_l2"], **pairwise_l2_row(q64, x_c, "pairwise_l2"),
+        ptxas=ptxas_of("pairwise_l2_kernel")))
+    say(f"pairwise_l2: max |Δd²| {kernels[-1]['max_abs_err']:.3g} over "
+        f"{kernels[-1]['shape']}")
 
     # qdots on the rows of the adaptive plan above, compacted to its live
     # width, for the first qc queries (about 2 GB of rows)
@@ -1833,6 +2309,11 @@ def main(argv=None) -> int:
     # ---- recall frontier, launch counts zeroed (the fleet is gone) -------
     frontier_launches = frontier_path(args, dev, cfg, report)
     peak_gb = max(peak_gb, report["frontier"]["peak_memory_gb"])
+
+    # ---- the LM serving plane, launch counts zeroed (every earlier path's
+    # data is gone) ------------------------------------------------------------
+    lm_launches = lm_path(args, dev, report)
+    peak_gb = max(peak_gb, report["lm"]["peak_memory_gb"])
     # the paths' own shapes, checked against the plain versions after each
     # path's counts were read: their errors join the kernel rows
     for row in kernels:
@@ -1845,10 +2326,15 @@ def main(argv=None) -> int:
             row["frontier_chunk"] = report["frontier"]["l2_check"]
             row["max_abs_err"] = max(row["max_abs_err"],
                                      row["frontier_chunk"]["max_abs_err"])
+        if row["name"] in LM_KERNELS:
+            lm = report["lm"]["kernels"][row["name"]]
+            row["lm_shape"] = lm
+            row["max_abs_err"] = max([row["max_abs_err"], lm["max_abs_err"]]
+                                     + [lm.get("queries", lm)["max_abs_err"]])
     say(f"peak device memory of the smoke: {peak_gb:.1f} GB")
     by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches,
                "net": net_launches, "mesh": mesh_launches,
-               "frontier": frontier_launches}
+               "frontier": frontier_launches, "lm": lm_launches}
     for row in kernels:
         row["launches_by_path"] = {p_: c[row["name"]] for p_, c in by_path.items()}
 

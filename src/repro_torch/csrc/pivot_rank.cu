@@ -20,9 +20,10 @@
 //     for a 64-row query batch); lane s of the group scans pivots s, s + G,
 //     ... in ascending id and keeps its own sorted top-m list in registers;
 //   * the list length is a template constant, exact for w = 16, m = 10 (the
-//     configuration's; the only one its paths run) and 16 / 32 for any other
-//     w or m; with G = 1 the exact list takes kRows = 2 rows per lane, so
-//     that each pivot word read from shared memory feeds two rows' FMAs;
+//     paper configuration's) and 16 / 32 for any other w or m (the kNN-LM's
+//     m = 6 runs the 16-entry list); with G = 1 the exact list takes
+//     kRows = 2 rows per lane, so that each pivot word read from shared
+//     memory feeds two rows' FMAs;
 //   * the lane computes the distances of kChunk = 16 pivots, stages them in
 //     shared memory and marks those that beat its current m-th distance
 //     (branch-free); then, while a warp vote says some lane still holds a

@@ -1,0 +1,338 @@
+"""KV/SSM caches, prefill and single-token decode for every family (the JAX
+package's ``repro.models.decoding`` in PyTorch).
+
+Cache layouts (leading-``layers``-stacked, as in the reference):
+  dense-GQA / moe : k, v   [L, B, S_max, KV, hd]
+  dense-MLA       : ckv    [L, B, S_max, kv_lora + rope]      (compressed)
+  ssm             : h [L, B, H, hd, N] fp32; conv [L, B, 3, C]
+  hybrid          : per-group ssm states + shared-attn caches [G, B, S, KV, hd]
+  encdec          : decoder self k/v + precomputed cross k/v over enc states
+  vlm             : per-group self k/v + precomputed cross k/v over patches
+
+``cache["len"]`` is the position decode writes at and masks validity with,
+a host int here (the reference's 0-d int32).  Caches are values:
+:func:`decode_step` returns a new cache and leaves its argument as it was.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+from repro_torch.models.model import Model, batch_to, cross_kv, gated_cross_block
+from repro_torch.utils.config import ModelConfig
+from repro_torch.utils.device import DeviceLike, resolve_device
+
+
+class CacheSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+# ----------------------------------------------------------------------
+# cache construction
+# ----------------------------------------------------------------------
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 enc_len: int = 0, img_len: int = 0) -> Dict[str, CacheSpec]:
+    """Shape and dtype of every entry of the decode cache."""
+    dt = torch.bfloat16
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    sds = CacheSpec
+    length = sds((), torch.int32)
+
+    if cfg.family in ("dense", "moe") and not cfg.use_mla:
+        return {"k": sds((cfg.num_layers, batch, max_len, kv, hd), dt),
+                "v": sds((cfg.num_layers, batch, max_len, kv, hd), dt),
+                "len": length}
+    if cfg.use_mla:
+        width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        return {"ckv": sds((cfg.num_layers, batch, max_len, width), dt),
+                "len": length}
+    if cfg.family == "ssm":
+        d_in, h, n = SSM.ssm_dims(cfg)
+        conv_ch = d_in + 2 * n
+        return {"h": sds((cfg.num_layers, batch, h, cfg.ssm_head_dim, n),
+                         torch.float32),
+                "conv": sds((cfg.num_layers, batch, SSM.CONV_W - 1, conv_ch), dt),
+                "len": length}
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.hybrid_attn_every
+        per = cfg.hybrid_attn_every
+        d_in, h, n = SSM.ssm_dims(cfg)
+        conv_ch = d_in + 2 * n
+        return {"h": sds((groups, per, batch, h, cfg.ssm_head_dim, n),
+                         torch.float32),
+                "conv": sds((groups, per, batch, SSM.CONV_W - 1, conv_ch), dt),
+                "k": sds((groups, batch, max_len, kv, hd), dt),
+                "v": sds((groups, batch, max_len, kv, hd), dt),
+                "len": length}
+    if cfg.family == "encdec":
+        return {"k": sds((cfg.num_layers, batch, max_len, kv, hd), dt),
+                "v": sds((cfg.num_layers, batch, max_len, kv, hd), dt),
+                "xk": sds((cfg.num_layers, batch, enc_len, kv, hd), dt),
+                "xv": sds((cfg.num_layers, batch, enc_len, kv, hd), dt),
+                "len": length}
+    if cfg.family == "vlm":
+        groups = cfg.num_layers // cfg.cross_attn_every
+        spg = cfg.cross_attn_every - 1
+        return {"k": sds((groups, spg, batch, max_len, kv, hd), dt),
+                "v": sds((groups, spg, batch, max_len, kv, hd), dt),
+                "xk": sds((groups, batch, img_len, kv, hd), dt),
+                "xv": sds((groups, batch, img_len, kv, hd), dt),
+                "len": length}
+    raise ValueError(cfg.family)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               img_len: int = 0, *, device: DeviceLike = None) -> Dict[str, Any]:
+    dev = resolve_device(device)
+    return {name: 0 if name == "len" else torch.zeros(s.shape, dtype=s.dtype,
+                                                      device=dev)
+            for name, s in cache_shapes(cfg, batch, max_len, enc_len,
+                                        img_len).items()}
+
+
+# ----------------------------------------------------------------------
+# decode step
+# ----------------------------------------------------------------------
+def _ssm_decode_layer(lp, h, hs, cs, cfg):
+    out, st = SSM.ssd_decode(lp["ssm"], L.rmsnorm(h, lp["ln"]),
+                             SSM.SSMState(hs, cs), cfg)
+    return h + out, st
+
+
+def decode_step(model: Model, params, cache: Dict[str, Any],
+                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One-token decode.  token: [B, 1] int → (logits [B, 1, V], cache')."""
+    cfg = model.cfg
+    token = torch.as_tensor(token, device=params["embed"]["tok"].device)
+    x = L.embed(params["embed"], token)
+    clen = int(cache["len"])
+
+    if cfg.family in ("dense", "moe") and not cfg.use_mla:
+        ks, vs = [], []
+        for lp, ck, cv in zip(params["layers"], cache["k"], cache["v"]):
+            a, nk, nv = L.gqa_decode(lp["attn"], L.rmsnorm(x, lp["ln1"]),
+                                     ck, cv, clen, cfg)
+            x = x + a
+            hn = L.rmsnorm(x, lp["ln2"])
+            if cfg.family == "moe":
+                x = x + model._moe_apply(lp["moe"], hn)
+            else:
+                x = x + L.swiglu(lp["mlp"], hn)
+            ks.append(nk)
+            vs.append(nv)
+        new_cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": clen + 1}
+
+    elif cfg.use_mla:
+        ckvs = []
+        for lp, ckv in zip(params["layers"], cache["ckv"]):
+            a, nckv = L.mla_decode(lp["attn"], L.rmsnorm(x, lp["ln1"]),
+                                   ckv, clen, cfg)
+            x = x + a
+            x = x + L.swiglu(lp["mlp"], L.rmsnorm(x, lp["ln2"]))
+            ckvs.append(nckv)
+        new_cache = {"ckv": torch.stack(ckvs), "len": clen + 1}
+
+    elif cfg.family == "ssm":
+        hs, cs = [], []
+        for lp, h0, c0 in zip(params["layers"], cache["h"], cache["conv"]):
+            x, st = _ssm_decode_layer(lp, x, h0, c0, cfg)
+            hs.append(st.h)
+            cs.append(st.conv)
+        new_cache = {"h": torch.stack(hs), "conv": torch.stack(cs),
+                     "len": clen + 1}
+
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        hs, cs, ks, vs = [], [], [], []
+        for gp, gh, gc, ck, cv in zip(params["layers"], cache["h"],
+                                      cache["conv"], cache["k"], cache["v"]):
+            hg, cg = [], []
+            for lp, h0, c0 in zip(gp, gh, gc):
+                x, st = _ssm_decode_layer(lp, x, h0, c0, cfg)
+                hg.append(st.h)
+                cg.append(st.conv)
+            a, nk, nv = L.gqa_decode(shared["attn"], L.rmsnorm(x, shared["ln1"]),
+                                     ck, cv, clen, cfg)
+            x = x + a
+            x = x + L.swiglu(shared["mlp"], L.rmsnorm(x, shared["ln2"]))
+            hs.append(torch.stack(hg))
+            cs.append(torch.stack(cg))
+            ks.append(nk)
+            vs.append(nv)
+        new_cache = {"h": torch.stack(hs), "conv": torch.stack(cs),
+                     "k": torch.stack(ks), "v": torch.stack(vs), "len": clen + 1}
+
+    elif cfg.family == "encdec":
+        ks, vs = [], []
+        for lp, ck, cv, xk, xv in zip(params["layers"], cache["k"], cache["v"],
+                                      cache["xk"], cache["xv"]):
+            a, nk, nv = L.gqa_decode(lp["self_attn"], L.rmsnorm(x, lp["ln1"]),
+                                     ck, cv, clen, cfg)
+            x = x + a
+            c = L.gqa_attention(lp["cross_attn"], L.rmsnorm(x, lp["ln_x"]),
+                                cfg, causal=False, kv_override=(xk, xv),
+                                kv_chunk=xk.shape[1])
+            x = x + c
+            x = x + L.swiglu(lp["mlp"], L.rmsnorm(x, lp["ln2"]))
+            ks.append(nk)
+            vs.append(nv)
+        new_cache = {**cache, "k": torch.stack(ks), "v": torch.stack(vs),
+                     "len": clen + 1}
+
+    elif cfg.family == "vlm":
+        ks, vs = [], []
+        for gp, cp, gk, gv, xk, xv in zip(params["layers"], params["cross_layers"],
+                                          cache["k"], cache["v"], cache["xk"],
+                                          cache["xv"]):
+            kg, vg = [], []
+            for lp, ck, cv in zip(gp, gk, gv):
+                a, nk, nv = L.gqa_decode(lp["attn"], L.rmsnorm(x, lp["ln1"]),
+                                         ck, cv, clen, cfg)
+                x = x + a
+                x = x + L.swiglu(lp["mlp"], L.rmsnorm(x, lp["ln2"]))
+                kg.append(nk)
+                vg.append(nv)
+            x = gated_cross_block(cp, x, xk, xv, cfg, xk.shape[1])
+            ks.append(torch.stack(kg))
+            vs.append(torch.stack(vg))
+        new_cache = {**cache, "k": torch.stack(ks), "v": torch.stack(vs),
+                     "len": clen + 1}
+
+    else:
+        raise ValueError(cfg.family)
+
+    logits = L.unembed(params["embed"], x)
+    return logits, new_cache
+
+
+# ----------------------------------------------------------------------
+# prefill
+# ----------------------------------------------------------------------
+def prefill(model: Model, params, batch: Dict[str, torch.Tensor], *,
+            max_len: int = 0, kv_chunk: int = 2048
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Process the prompt, returning (logits [B, S, V], cache at len S)."""
+    cfg = model.cfg
+    batch = batch_to(batch, params["embed"]["tok"].device)
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    max_len = max(max_len, s)
+    x = L.embed(params["embed"], tokens)
+
+    def pad_seq(t):
+        if max_len == s:
+            return t
+        return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, max_len - s))
+
+    if cfg.family in ("dense", "moe") and not cfg.use_mla:
+        ks, vs = [], []
+        for lp in params["layers"]:
+            x = model.constrain_acts(x)
+            a, k, v = L.gqa_prefill(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
+                                    kv_chunk=kv_chunk)
+            x = x + a
+            hn = L.rmsnorm(x, lp["ln2"])
+            if cfg.family == "moe":
+                x = x + model._moe_apply(lp["moe"], hn)
+            else:
+                x = x + L.swiglu(lp["mlp"], hn)
+            ks.append(model.constrain_kv(pad_seq(k)))
+            vs.append(model.constrain_kv(pad_seq(v)))
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": s}
+
+    elif cfg.use_mla:
+        ckvs = []
+        for lp in params["layers"]:
+            x = model.constrain_acts(x)
+            a, ckv = L.mla_prefill(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
+                                   kv_chunk=kv_chunk)
+            x = x + a
+            x = x + L.swiglu(lp["mlp"], L.rmsnorm(x, lp["ln2"]))
+            ckvs.append(model.constrain_kv(pad_seq(ckv)))
+        cache = {"ckv": torch.stack(ckvs), "len": s}
+
+    elif cfg.family == "ssm":
+        hs, cs = [], []
+        for lp in params["layers"]:
+            x = model.constrain_acts(x)
+            y, st = SSM.ssd_forward_with_state(lp["ssm"], L.rmsnorm(x, lp["ln"]), cfg)
+            x = x + y
+            hs.append(st.h)
+            cs.append(st.conv)
+        cache = {"h": torch.stack(hs), "conv": torch.stack(cs), "len": s}
+
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        hs, cs, ks, vs = [], [], [], []
+        for gp in params["layers"]:
+            x = model.constrain_acts(x)
+            hg, cg = [], []
+            for lp in gp:
+                y, st = SSM.ssd_forward_with_state(
+                    lp["ssm"], L.rmsnorm(x, lp["ln"]), cfg)
+                x = x + y
+                hg.append(st.h)
+                cg.append(st.conv)
+            a, k, v = L.gqa_prefill(shared["attn"], L.rmsnorm(x, shared["ln1"]),
+                                    cfg, kv_chunk=kv_chunk)
+            x = x + a
+            x = x + L.swiglu(shared["mlp"], L.rmsnorm(x, shared["ln2"]))
+            hs.append(torch.stack(hg))
+            cs.append(torch.stack(cg))
+            ks.append(model.constrain_kv(pad_seq(k)))
+            vs.append(model.constrain_kv(pad_seq(v)))
+        cache = {"h": torch.stack(hs), "conv": torch.stack(cs),
+                 "k": torch.stack(ks), "v": torch.stack(vs), "len": s}
+
+    elif cfg.family == "encdec":
+        enc = model._encode(params, batch["frames"], kv_chunk=kv_chunk)
+        ks, vs, xks, xvs = [], [], [], []
+        for lp in params["layers"]:
+            x = model.constrain_acts(x)
+            a, k, v = L.gqa_prefill(lp["self_attn"], L.rmsnorm(x, lp["ln1"]),
+                                    cfg, kv_chunk=kv_chunk)
+            x = x + a
+            xk, xv = cross_kv(lp["cross_attn"], enc)
+            c = L.gqa_attention(lp["cross_attn"], L.rmsnorm(x, lp["ln_x"]),
+                                cfg, causal=False, kv_override=(xk, xv),
+                                kv_chunk=kv_chunk)
+            x = x + c
+            x = x + L.swiglu(lp["mlp"], L.rmsnorm(x, lp["ln2"]))
+            ks.append(model.constrain_kv(pad_seq(k)))
+            vs.append(model.constrain_kv(pad_seq(v)))
+            xks.append(model.constrain_kv(xk))
+            xvs.append(model.constrain_kv(xv))
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "xk": torch.stack(xks), "xv": torch.stack(xvs), "len": s}
+
+    elif cfg.family == "vlm":
+        img = batch["image_embeds"]
+        ks, vs, xks, xvs = [], [], [], []
+        for gp, cp in zip(params["layers"], params["cross_layers"]):
+            x = model.constrain_acts(x)
+            kg, vg = [], []
+            for lp in gp:
+                a, k, v = L.gqa_prefill(lp["attn"], L.rmsnorm(x, lp["ln1"]), cfg,
+                                        kv_chunk=kv_chunk)
+                x = x + a
+                x = x + L.swiglu(lp["mlp"], L.rmsnorm(x, lp["ln2"]))
+                kg.append(model.constrain_kv(pad_seq(k)))
+                vg.append(model.constrain_kv(pad_seq(v)))
+            xk, xv = cross_kv(cp["attn"], img)
+            x = gated_cross_block(cp, x, xk, xv, cfg, kv_chunk)
+            ks.append(torch.stack(kg))
+            vs.append(torch.stack(vg))
+            xks.append(model.constrain_kv(xk))
+            xvs.append(model.constrain_kv(xv))
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "xk": torch.stack(xks), "xv": torch.stack(xvs), "len": s}
+
+    else:
+        raise ValueError(cfg.family)
+
+    logits = L.unembed(params["embed"], x)
+    return logits, cache

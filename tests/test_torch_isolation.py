@@ -59,8 +59,10 @@ def test_scan_sees_every_module():
 
 def test_no_library_kernel_stands_in():
     """The kernel modules launch their own CUDA kernels: no call in the
-    port goes to torch.topk, torch.compile, torch.cdist or avg_pool1d."""
-    banned = {"topk", "compile", "cdist", "avg_pool1d"}
+    port goes to torch.topk, torch.compile, torch.cdist, avg_pool1d or (on
+    the LM path, whose attention is the reference's chunked softmax)
+    scaled_dot_product_attention."""
+    banned = {"topk", "compile", "cdist", "avg_pool1d", "scaled_dot_product_attention"}
     for path in PORT_FILES[:-1]:          # chip_smoke.py may time yardsticks
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
@@ -108,7 +110,12 @@ def test_scan_sees_the_fleet_packages():
                          ("distributed", {"store"}),
                          ("fleet", {"fleet", "router", "device_plan", "placement",
                                     "engine"}),
-                         ("fleet/lifecycle", {"wal", "snapshot", "compactor", "merge"})):
+                         ("fleet/lifecycle", {"wal", "snapshot", "compactor", "merge"}),
+                         ("models", {"params", "layers", "moe", "ssm", "model",
+                                     "decoding"}),
+                         ("configs", {"internlm2_1_8b", "mamba2_780m"}),
+                         ("serve", {"engine"}),
+                         ("data", {"tokens"})):
         assert {f"{pkg}/{m}.py" for m in modules | {"__init__"}} <= rel
 
 
@@ -122,3 +129,22 @@ def test_fleet_without_a_card_raises(monkeypatch, tmp_path):
     IndexFleet(cfg, device="cpu").save(tmp_path / "f")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         IndexFleet.open(tmp_path / "f")
+
+
+def test_lm_plane_without_a_card_raises(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Model, init_cache
+    from repro_torch.serve import Engine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg).init(torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TokenPipeline(cfg, 2, 8).batch_at(0)
+    params = Model(cfg).init(torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(Model(cfg), params)
+    Engine(Model(cfg), params, device="cpu").step()
