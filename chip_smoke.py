@@ -124,8 +124,10 @@ path and read just after it:
 Then, off the paths, it holds each CUDA kernel against its plain PyTorch
 version on the same inputs at the paths' shapes, times both with CUDA
 events (and the one PyTorch call that computes the same function, where
-there is one; ``pivot_rank`` also at one tick's 64 query rows, with the
-profiler's device time; ``refine_topk`` on three plans — adaptive on
+there is one; ``paa`` and ``pivot_rank`` also at one tick's 64 query
+rows, with the profiler's device time; ``paa`` also bit for bit against
+``paa_sequential``, its order of additions, on up to 8,192 sampled rows at
+every shape it is timed at; ``refine_topk`` on three plans — adaptive on
 queries 0-63, adaptive on the traced tick's queries 64-127, and
 ``od_smallest`` — each with the (query, record) pairs it keeps, the
 distinct records behind them and its byte bound), reads each redesigned
@@ -316,20 +318,34 @@ def pivot_rank_check(z, piv, m):
 # One kernel row at any path's shapes: the check against the plain version,
 # CUDA-event times of kernel, plain version and library call, and the bound.
 
-def paa_row(x, w):
-    """``paa`` on ``x`` against its plain version (max abs err ≤ 1e-5);
-    the library call is ``x.view(B, w, n // w).mean(-1)``."""
+def paa_row(x, w, iters=5, warmup=2, tick=False):
+    """``paa`` on ``x`` against its plain version (max abs err ≤ 1e-5) and,
+    bit for bit, against ``paa_sequential`` (its order of additions) on the
+    CPU over up to 8,192 rows spread across ``x``; the library call is
+    ``x.view(B, w, n // w).mean(-1)``.  At a ``tick``'s shape the event time
+    is the host's launch cost, so the row adds the profiler's device time."""
+    import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paa_kernel import paa_plain
+    from repro_torch.kernels.paa_kernel import paa_plain, paa_sequential
     b, n = x.shape
-    err = float((ops.paa(x, w) - paa_plain(x, w)).abs().max())
+    got = ops.paa(x, w)
+    err = float((got - paa_plain(x, w)).abs().max())
     if not err <= 1e-5:
         raise SystemExit(f"paa [{b}, {n}]: kernel vs plain max abs err {err} > 1e-5")
+    k = min(b, 8192)
+    rows = torch.arange(k, device=x.device) * b // k
+    differ = int((got[rows].cpu() != paa_sequential(x[rows].cpu(), w)).any(1).sum())
+    if differ:
+        raise SystemExit(f"paa [{b}, {n}]: {differ} of {rows.numel()} sampled rows "
+                         f"differ from paa_sequential's bits")
     bms, bby = bound_ms(b * n * 4 + b * w * 4, b * n)
-    return {"max_abs_err": err, "ms": cuda_ms(lambda: ops.paa(x, w)),
-            "plain_ms": cuda_ms(lambda: paa_plain(x, w)), "bound_ms": bms,
-            "bound_by": bby, "library_ms": cuda_ms(lambda: x.view(b, w, n // w).mean(-1)),
-            "shape": f"[{b},{n}] -> [{b},{w}]"}
+    return {"max_abs_err": err, "bit_equal_rows": int(rows.numel()),
+            "ms": cuda_ms(lambda: ops.paa(x, w), iters, warmup),
+            "plain_ms": cuda_ms(lambda: paa_plain(x, w), iters, warmup), "bound_ms": bms,
+            "bound_by": bby,
+            "library_ms": cuda_ms(lambda: x.view(b, w, n // w).mean(-1), iters, warmup),
+            "shape": f"[{b},{n}] -> [{b},{w}]",
+            **({"device_ms": device_ms(lambda: ops.paa(x, w), "paa")} if tick else {})}
 
 
 def pivot_rank_row(z, piv, m, iters=5, warmup=2, plain_iters=5, plain_warmup=2):
@@ -2138,7 +2154,10 @@ def main(argv=None) -> int:
     kernels.append(dict(
         name="paa", route="cuda", source="src/repro_torch/csrc/paa.cu",
         replaces="src/repro/kernels/paa_kernel.py:42", launches=launches["paa"],
-        **paa_row(data, w)))
+        **paa_row(data, w), ptxas=ptxas_of("paa_kernel")))
+    # and at the serving shape: one tick's featurize, 64 query rows
+    kernels[-1]["tick_shape"] = paa_row(q64, w, 50, 5, tick=True)
+    say(f"paa at [64,{n}]: {json.dumps(kernels[-1]['tick_shape'])}")
 
     # pivot_rank over the dataset's PAA rows (step 4's work in one call)
     piv = index.pivots

@@ -1,10 +1,15 @@
 """PAA mean-pool ``[B, n]`` → ``[B, w]``: CUDA kernel and plain version.
 
 Replaces ``repro/kernels/paa_kernel.py::paa``.  The kernel is
-``csrc/paa.cu`` (CUDA C++ for ``sm_90a``): HBM-bound, one thread per
-(row, segment) summing its segment with 16-byte loads.  It reads
+``csrc/paa.cu`` (CUDA C++ for ``sm_90a``), bound by HBM bytes: it reads
 ``4n + 4w`` bytes per row, so at B = 4.2M, n = 256 its bound is 4.56 GB
-over 3.35 TB/s.
+over 3.35 TB/s.  A persistent grid copies tiles of consecutive segments
+(one contiguous range each) through a ring of shared-memory stages with
+coalesced ``cp.async``, and one thread per segment sums it out of shared
+memory (segments padded to an odd chunk stride, free of bank conflicts).
+Each sum runs from 0 in increasing sample order and is divided by the
+segment length: :func:`paa_sequential` is that order in PyTorch, and the
+kernel equals it bit for bit.
 """
 from __future__ import annotations
 
@@ -19,6 +24,20 @@ def paa_plain(x: torch.Tensor, segments: int) -> torch.Tensor:
     if n % segments:
         raise ValueError(f"series length {n} not divisible by w={segments}")
     return x.float().reshape(*x.shape[:-1], segments, n // segments).mean(dim=-1)
+
+
+def paa_sequential(x: torch.Tensor, segments: int) -> torch.Tensor:
+    """The kernel's exact order: ``[B, n]`` → ``[B, w]``, each segment summed
+    one sample at a time from zero in increasing j, then divided by its
+    length.  For the tests and the smoke's bit checks, not the path."""
+    b, n = x.shape
+    if n % segments:
+        raise ValueError(f"series length {n} not divisible by w={segments}")
+    xs = x.float().reshape(b, segments, n // segments)
+    acc = torch.zeros((b, segments), dtype=torch.float32, device=x.device)
+    for j in range(n // segments):
+        acc = acc + xs[..., j]
+    return acc / (n // segments)
 
 
 def paa(x: torch.Tensor, segments: int) -> torch.Tensor:

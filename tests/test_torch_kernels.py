@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _lib, ops, ref  # noqa: E402
-from repro_torch.kernels.paa_kernel import paa_plain  # noqa: E402
+from repro_torch.kernels.paa_kernel import paa_plain, paa_sequential  # noqa: E402
 from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain  # noqa: E402
 from repro_torch.kernels.refine_topk import (PAD_D2, masked_distances, refine_topk,  # noqa: E402
                                              refine_topk_plain, refine_work)
@@ -122,6 +122,22 @@ def test_paa_plain_matches_pallas_and_ref(jk):
     np.testing.assert_allclose(got, np.asarray(jref.paa_ref(jnp.asarray(x), 8)),
                                atol=1e-6)
     np.testing.assert_array_equal(ref.paa_ref(torch.as_tensor(x), 8).numpy(), got)
+
+
+@pytest.mark.parametrize("n,w", [(256, 16), (2048, 16), (120, 12), (36, 4)])
+def test_paa_sequential_matches_plain_and_reference(jk, n, w):
+    """The kernel's order (one sample at a time) against the plain mean and
+    the reference, within 1e-6·max|x|: they sum in other orders."""
+    jnp, jref, jpaa, _, _ = jk
+    x = np.random.default_rng(n + w).standard_normal((37, n)).astype(np.float32)
+    got = paa_sequential(torch.as_tensor(x), w).numpy()
+    atol = 1e-6 * float(np.abs(x).max())
+    np.testing.assert_allclose(got, paa_plain(torch.as_tensor(x), w).numpy(),
+                               rtol=0, atol=atol)
+    np.testing.assert_allclose(got, np.asarray(jpaa(jnp.asarray(x), w, interpret=True)),
+                               rtol=0, atol=atol)
+    np.testing.assert_allclose(got, np.asarray(jref.paa_ref(jnp.asarray(x), w)),
+                               rtol=0, atol=atol)
 
 
 def tied_pivot_inputs(seed, rows, w, r=200, distinct=20):
@@ -240,6 +256,32 @@ def test_cuda_paa_matches_plain(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts()["paa"] == n0 + 1
     assert float((got - paa_plain(x, 16)).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,w,offset", [
+    (1000, 256, 16, 0), (64, 256, 16, 0), (4099, 2048, 16, 0), (3, 2048, 16, 0),
+    (777, 120, 12, 0),      # seg 10: the 4-byte path
+    (1000, 256, 16, 1),     # base 4 B past a 16-byte boundary: the 4-byte path
+])
+def test_cuda_paa_bit_equal_to_sequential(cuda, b, n, w, offset):
+    """The kernel sums in :func:`paa_sequential`'s order: the same bits,
+    ragged last tiles, both chunk widths and a misaligned view included."""
+    flat = torch.randn(b * n + offset, generator=torch.Generator().manual_seed(b + n))
+    x = flat.to(cuda)[offset:].view(b, n)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 4 * offset)
+    n0 = ops.launch_counts()["paa"]
+    got = ops.paa(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paa"] == n0 + 1
+    assert torch.equal(got.cpu(), paa_sequential(flat[offset:].view(b, n), w))
+
+
+@pytest.mark.cuda
+def test_cuda_paa_refuses_segments_beyond_shared_memory(cuda):
+    with pytest.raises(RuntimeError, match="paa"):
+        ops.paa(torch.zeros((1, 32768), device=cuda), 1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

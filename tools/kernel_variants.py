@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Design variants and timing probes of the ``refine_topk`` and
-``pairwise_l2`` CUDA kernels, timed on one card.
+"""Design variants and timing probes of the ``refine_topk``,
+``pairwise_l2`` and ``paa`` CUDA kernels, timed on one card.
 
 Builds the kernel library from a source directory (``--csrc``, the
 package's ``src/repro_torch/csrc`` by default) as it is, and in variants
-made by editing the text of ``refine_topk.cu`` or ``l2.cu`` (one ``nvcc``
-per variant, all started together).  ``--parent-csrc DIR`` also builds an
+made by editing the text of ``refine_topk.cu``, ``l2.cu`` or ``paa.cu``
+(one ``nvcc`` per variant, all started together; with ``--kernel paa``
+only ``paa.cu`` is compiled).  ``--parent-csrc DIR`` also builds an
 older tree's sources unedited (``parent``), so that two designs are timed
 in turns in one call.  An edit whose anchor text is not in the source is
 skipped and reported, so the one list serves several designs.
@@ -17,6 +18,13 @@ queries 0-63 (the smoke's timed batch), adaptive on queries 64-127 (the
 smoke's traced tick) and ``od_smallest`` on queries 0-63; each plan's
 ``kept_pairs`` / ``unique_kept_records`` and byte bound come with it.
 ``pairwise_l2`` runs on 64 queries x the first 2^20 series (one Dss chunk).
+``paa`` (w = 16) runs on the 2^22 series (the paper's shape), on 2^18
+seeded normal rows of n = 2,048 (the kNN-LM's step-4 chunk) and on 64 of
+the series (one serving tick); every build that computes the function,
+the parent's included, must equal the committed kernel bit for bit, and
+the committed kernel must equal ``paa_sequential`` on up to 8,192 sampled
+rows (the tool exits 1 otherwise).  The library call
+``x.view(B, w, n // w).mean(-1)`` is timed beside them as ``library``.
 
 Each variant that computes the function is held against the plain version
 (the smoke's rules: ``|Δd²| <= 1e-5·(‖q‖²+‖x‖²)``, refine answers that
@@ -27,7 +35,7 @@ and the profiler's device time per kernel name, in three interleaved
 rounds.
 
 Usage (needs a CUDA card and nvcc):
-``python3 tools/kernel_variants.py [--kernel refine_topk|pairwise_l2|all]
+``python3 tools/kernel_variants.py [--kernel refine_topk|pairwise_l2|paa|all]
 [--csrc DIR] [--parent-csrc DIR] [--out chiprun_out/kernel_variants.json]``
 """
 from __future__ import annotations
@@ -46,6 +54,78 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.kernels import _lib  # noqa: E402
+
+# The tma_bulk variant's kernel, put in place of paa.cu's (which is renamed
+# and left unused).  Its mbarriers sit after the ring in dynamic shared
+# memory.
+PAA_TMA = """__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile("{\\n .reg .pred p;\\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
+                 " selp.u32 %0, 1, 0, p;\\n}\\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+paa_kernel(const typename Chunk<V>::T* __restrict__ x, float* __restrict__ out,
+           long long segs, int seg, int P, long long tiles) {
+  using T = typename Chunk<V>::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int cps = seg / (V / 4);
+  const int slot = P * cps;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(ring + kStages * slot);
+  const long long step = gridDim.x;
+  long long tile = blockIdx.x;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(smem_u32(full + s)));
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](long long t, int s) {
+    const int np = tile_segments(t, P, segs);
+    if (np > 0)
+      bulk_load(ring + s * slot, x + t * P * cps, static_cast<unsigned>(np) * cps * V,
+                full + s);
+  };
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kStages - 1; ++s) issue(tile + s * step, s);
+  for (int i = 0; tile < tiles; ++i, tile += step) {
+    bar_wait(full + i % kStages, (i / kStages) & 1);
+    __syncthreads();
+    if (threadIdx.x == 0) issue(tile + (kStages - 1) * step, (i + kStages - 1) % kStages);
+    const T* buf = ring + (i % kStages) * slot;
+    const int np = tile_segments(tile, P, segs);
+    for (int p = threadIdx.x; p < np; p += kThreads) {
+      const T* s = buf + p * cps;
+      float acc = 0.f;
+      for (int j = 0; j < cps; ++j) acc = add_chunk(acc, s[j]);
+      out[tile * P + p] = acc / static_cast<float>(seg);
+    }
+  }
+}
+
+"""
+
+XM_SWIZZLED = ("  const int xm = V == 16 && (cps & (cps - 1)) == 0 ? "
+               "(cps >= 8 ? 7 : cps - 1) : 0;")
 
 # name -> (source file, [(anchor, replacement), ...]).  Anchors of the PR 12
 # design and of the redesign may both be listed: what is absent is skipped.
@@ -144,8 +224,57 @@ EDITS = {
         "few_stores": ("l2.cu", [
             ("if (c0 + cl < cn) orow[cl] =", "if (c0 + cl < cn && acc[i][j] == 1234.5f) orow[cl] =")]),
     },
+    "paa": {
+        # the ring's depth, a tile's size and the sum's unrolling
+        "stages3": ("paa.cu", [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
+        "stages4": ("paa.cu", [("constexpr int kStages = 2;", "constexpr int kStages = 4;")]),
+        "tile16k": ("paa.cu", [("constexpr int kTileBytes = 32768;",
+                                "constexpr int kTileBytes = 16384;")]),
+        "tile16k_stages4": ("paa.cu", [
+            ("constexpr int kStages = 2;", "constexpr int kStages = 4;"),
+            ("constexpr int kTileBytes = 32768;", "constexpr int kTileBytes = 16384;")]),
+        "unroll8": ("paa.cu", [("      for (int j = 0; j < cps; ++j) acc",
+                                "#pragma unroll 8\n      for (int j = 0; j < cps; ++j) acc")]),
+        # each tile copied by one 1-D TMA bulk copy (one thread issues it,
+        # an mbarrier per ring slot), packed; 16-byte path only
+        "tma_bulk": ("paa.cu", [
+            ("template <int V>\n__global__ void __launch_bounds__(kThreads)\npaa_kernel(",
+             PAA_TMA + "template <int V>\n__global__ void __launch_bounds__(kThreads)\n"
+             "paa_kernel_cp_async("),
+            ("static_cast<size_t>(kStages) * P * cps * V;",
+             "static_cast<size_t>(kStages) * P * cps * V + kStages * 8;"),
+            ("  return launch<4>(x, out, segs, seg, s);",
+             "  return static_cast<int>(cudaErrorNotSupported);")]),
+        # probes of what each part buys: the packed layout (bank conflicts in
+        # the sum); segments at an odd chunk stride (no conflicts, scattered
+        # copies); the copies alone, nothing summed or written; the sums
+        # without their stores
+        "packed": ("paa.cu", [(XM_SWIZZLED, "  const int xm = 0;")]),
+        "padded": ("paa.cu", [
+            ("  for (int g = threadIdx.x; g < total; g += kThreads)\n"
+             "    cp_async<V>(buf + (g ^ ((g >> ws) & xm)), src + g);",
+             """  int p = threadIdx.x / cps, c = threadIdx.x - p * cps;
+  for (int g = threadIdx.x; g < total; g += kThreads) {
+    cp_async<V>(buf + p * (cps | 1) + c, src + g);
+    c += kThreads % cps;
+    const bool wrap = c >= cps;
+    p += kThreads / cps + wrap;
+    c -= wrap ? cps : 0;
+  }"""),
+            (XM_SWIZZLED, "  const int xm = 0;"),
+            ("  const int slot = P * cps;", "  const int slot = P * (cps | 1);"),
+            ("      const T* s = buf + p * cps;", "      const T* s = buf + p * (cps | 1);"),
+            ("static_cast<size_t>(kStages) * P * cps * V;",
+             "static_cast<size_t>(kStages) * P * (cps | 1) * V;")]),
+        "copy_only": ("paa.cu", [
+            ("for (int p = threadIdx.x; p < np; p += kThreads) {",
+             "for (int p = threadIdx.x; p < 0 * np; p += kThreads) {")]),
+        "no_store": ("paa.cu", [
+            ("      out[tile * P + p] = acc / static_cast<float>(seg);",
+             "      if (acc == 1234.5f) out[tile * P + p] = acc / static_cast<float>(seg);")]),
+    },
 }
-PROBES = {"tags_only", "rows_no_insert", "no_final_sort", "merge_only", "setup_only",
+PROBES = {"packed", "padded", "copy_only", "no_store", "tags_only", "rows_no_insert", "no_final_sort", "merge_only", "setup_only",
           "keep_all", "no_norm", "few_stores", "no_barrier", "no_loads"}
 CFG_SEED_QUERIES = 256
 
@@ -170,9 +299,10 @@ def variant_sources(kernel: str, csrc: Path):
     return out, skipped
 
 
-def build_all(builds: dict, root: Path) -> dict:
+def build_all(builds: dict, root: Path, only=None) -> dict:
     """builds: name -> (csrc dir, {file: text} overrides).  One nvcc per
-    build, all started together; returns name -> (CDLL, ptxas log)."""
+    build, all started together, over every source or the ``only`` ones;
+    returns name -> (CDLL, ptxas log)."""
     nvcc = _lib.find_nvcc()
     procs = {}
     for name, (csrc, override) in builds.items():
@@ -182,7 +312,8 @@ def build_all(builds: dict, root: Path) -> dict:
         for p in sorted(csrc.glob("*.cu*")):
             (d / p.name).write_text(override.get(p.name, p.read_text()))
         cmd = [nvcc, *_lib.NVCC_FLAGS, "-shared", "-I", str(d),
-               *sorted(str(p) for p in d.glob("*.cu")), "-o", str(d / "lib.so")]
+               *sorted(str(p) for p in d.glob("*.cu") if only is None or p.name in only),
+               "-o", str(d / "lib.so")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     built = {}
@@ -247,7 +378,7 @@ def timed(fn, names, iters=20):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("refine_topk", "pairwise_l2", "all"),
+    ap.add_argument("--kernel", choices=("refine_topk", "pairwise_l2", "paa", "all"),
                     default="all")
     ap.add_argument("--csrc", default=str(_lib.CSRC))
     ap.add_argument("--parent-csrc", default=None)
@@ -264,11 +395,13 @@ def main(argv=None) -> int:
     from repro_torch.core.query import plan as plan_queries
     from repro_torch.data import make_dataset, make_queries
     from repro_torch.kernels.l2 import pairwise_l2_plain
+    from repro_torch.kernels.paa_kernel import paa_sequential
     from repro_torch.kernels.refine_topk import (masked_distances, pick_splits,
                                                  refine_work, topk_flat)
     from repro_torch.utils.config import ClimberConfig
 
-    kernels = ("refine_topk", "pairwise_l2") if args.kernel == "all" else (args.kernel,)
+    kernels = (("refine_topk", "pairwise_l2", "paa") if args.kernel == "all"
+               else (args.kernel,))
     csrc = Path(args.csrc).resolve()
     builds = {"kernel": (csrc, {})}
     if args.parent_csrc:
@@ -277,7 +410,8 @@ def main(argv=None) -> int:
     for kern in kernels:
         srcs, skipped[kern] = variant_sources(kern, csrc)
         builds.update({f"{kern}:{v}": (csrc, o) for v, o in srcs.items()})
-    built = build_all(builds, ROOT / "build" / "kernel_variants")
+    built = build_all(builds, ROOT / "build" / "kernel_variants",
+                      only={"paa.cu"} if kernels == ("paa",) else None)
 
     dev = torch.device("cuda", 0)
     cfg = ClimberConfig()
@@ -289,7 +423,8 @@ def main(argv=None) -> int:
               "skipped_edits": skipped, "ptxas": {}}
     n = cfg.series_len
     for name, (_, log) in built.items():
-        report["ptxas"][name] = {**ptxas_of(log, "refine"), **ptxas_of(log, "pairwise_l2")}
+        report["ptxas"][name] = {**ptxas_of(log, "refine"), **ptxas_of(log, "pairwise_l2"),
+                                 **ptxas_of(log, "paa")}
 
     def rounds(cases, names, inputs_of, run, frags):
         """Time every (case, build) in interleaved rounds."""
@@ -297,7 +432,8 @@ def main(argv=None) -> int:
         for _ in range(args.rounds):
             for c in cases:
                 for b in names:
-                    ms, d = timed(lambda: run(built[b][0], *inputs_of(c)), frags)
+                    lib = built[b][0] if b in built else None
+                    ms, d = timed(lambda: run(lib, *inputs_of(c)), frags)
                     out[c][b]["ms"].append(ms)
                     out[c][b]["device_ms"].append(d)
         return out
@@ -409,6 +545,48 @@ def main(argv=None) -> int:
                                  "bound_ms": 2 * 64 * (1 << 20) * n / 67e12 * 1e3,
                                  "checks": checks, "times": times}
 
+    paa_ok = True
+    if "paa" in kernels:
+        w = cfg.paa_segments
+        g3 = torch.Generator(device=dev).manual_seed(args.seed + 200)
+        cases = {f"[{data.shape[0]},{n}]": data,
+                 "[262144,2048]": torch.randn((1 << 18, 2048), generator=g3, device=dev),
+                 "[64,256]": data[torch.randperm(data.shape[0], generator=g3,
+                                                 device=dev)[:64]].contiguous()}
+
+        def run_paa(lib, x):
+            b, nx = x.shape
+            if lib is None:                           # the library call
+                return x.view(b, w, nx // w).mean(-1)
+            out = torch.empty((b, w), dtype=torch.float32, device=dev)
+            _lib.check(lib.climber_paa(x.data_ptr(), out.data_ptr(), b, nx, w, stream),
+                       "paa variant")
+            return out
+
+        names = [b for b in built if b in ("kernel", "parent") or b.startswith("paa:")]
+        checks = {}
+        for c, x in cases.items():
+            ref = run_paa(built["kernel"][0], x)
+            k = min(x.shape[0], 8192)
+            rows = torch.arange(k, device=dev) * x.shape[0] // k
+            seq = bool(torch.equal(ref[rows].cpu(), paa_sequential(x[rows].cpu(), w)))
+            checks[c] = {"kernel": {"equal_to_paa_sequential": seq,
+                                    "sampled_rows": rows.numel()},
+                         "library": "timed only"}
+            paa_ok &= seq
+            for b in names:
+                if b != "kernel" and b.split(":")[-1] not in PROBES:
+                    eq = bool(torch.equal(run_paa(built[b][0], x), ref))
+                    checks[c][b] = {"equal_to_kernel": eq}
+                    paa_ok &= eq
+        times = rounds(list(cases), names + ["library"], lambda c: (cases[c],), run_paa,
+                       ("paa", "reduce"))
+        report["paa"] = {
+            "bound_ms": {c: 4 * x.shape[0] * (x.shape[1] + w) / 3.35e12 * 1e3
+                         for c, x in cases.items()},
+            "checks": checks, "times": times}
+        del cases
+
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(report, indent=1))
     for kern in kernels:
@@ -417,7 +595,7 @@ def main(argv=None) -> int:
         r = report[kern]
         print(f"== {kern}: skipped edits {skipped[kern]}")
         for c, per in r["times"].items():
-            print(f"  {c}: {json.dumps(r.get('plans', {}).get(c, {}))}")
+            print(f"  {c}: {json.dumps(r.get('plans', {}).get(c, r.get('bound_ms', {}).get(c, {})))}")
             for b, t in per.items():
                 chk = (r["checks"].get(c, r["checks"]) or {}).get(b, "probe")
                 print(f"    {b:32s} ms {['%.4f' % v for v in t['ms']]} "
@@ -426,7 +604,7 @@ def main(argv=None) -> int:
     for name, p in report["ptxas"].items():
         print(f"ptxas {name}: {p}")
     print(report["card"])
-    return 0
+    return 0 if paa_ok else 1
 
 
 if __name__ == "__main__":
