@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's seven paths once on one NVIDIA card, the first six at
+Drives the port's eight paths once on one NVIDIA card, the first six at
 the paper's configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10,
 c=3000, K=500), with every kernel's launch count zeroed just before each
 path and read just after it:
@@ -120,6 +120,31 @@ path and read just after it:
    After its counts are read, ``paa``, ``pivot_rank`` (m = 6),
    ``refine_topk`` (n = 2048, K = 16) and ``pairwise_l2`` are held against
    their plain versions and timed at the path's shapes.
+8. **train**, the training plane, after the lm path's weights are freed
+   (it runs none of the CLIMBER kernels: its launch counts are zeros):
+   (a) ``train()`` of internlm2-1.8b (``TRAIN_ARCH``) at its full width,
+   seeded random bf16 weights, ``remat="dots"``, train_4k's sequence of
+   4,096 tokens, a global batch of 8 sequences in 4 microbatches of 2, 12
+   steps of the periodic token data of ``examples/train_lm.py`` (AdamW,
+   warmup-cosine to lr 3e-4), a checkpoint at step 8 and the final one
+   at 12 under ``build/`` (removed after; ``TRAIN_EVERY`` says why not
+   every 4); the token draws raise ``StepFailure`` once, at step 9, before
+   it computes, so the run restores from step 8's checkpoint and finishes
+   at 12.  Hard checks: every loss and grad norm finite, the mean
+   of the last 3 losses below that of the first 3, the restored parameters
+   and moments byte-equal to the tensors saved, step 8's loss after the
+   restore bit-equal to its first, the checkpoint's keys, shapes and
+   dtypes those of the reference's stacked tree with bf16 leaves stored as
+   ``'<V2'``.  One more step is timed in parts (data, forward + backward,
+   optimizer).  (b) At 4 of the 24 layers, on one batch: the microbatched
+   step's loss within 5e-2 of the unsplit step's, and
+   ``shard_train_step`` on ``make_mesh(2, [card] * 2)`` against the
+   one-slot step: loss within 1e-5 relative, weights within 5e-2.  (c) One
+   step each of mamba2-780m (the SSD scan's backward) and olmoe-1b-7b
+   (``moe_local``'s) at full width and 2 layers: finite loss and grads,
+   the loss equal to ``cross_entropy(Model.forward(...))`` of the same
+   parameters (within ``MOE_LOSS_RTOL`` for the MoE).  ``--lm-smoke``
+   shrinks the path to the smoke configs, 64 tokens and 6 steps.
 
 Then, off the paths, it holds each CUDA kernel against its plain PyTorch
 version on the same inputs at the paths' shapes, times both with CUDA
@@ -151,6 +176,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1874,6 +1900,309 @@ def lm_recall_split(index, q, qp, datastore, i_ex, d_ex, w):
     return split
 
 
+TRAIN_ARCH = "internlm2-1.8b"
+# train_4k's sequence (utils/config SHAPES); its global batch of 256 cut to
+# 8 sequences in 4 microbatches of 2, and the run to 12 steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 8, 4, 12
+# a checkpoint at this width is 18.9 GB (bf16 weights, fp32 moments), and the
+# smoke keeps what it writes to disk under 45 GiB: a checkpoint at step 8 and
+# the final one at 12 (every 4 would write four)
+TRAIN_EVERY = 8
+TRAIN_LR, TRAIN_KV_CHUNK = 3e-4, 2048
+TRAIN_CHECK_LAYERS = 4                 # microbatched ≡ plain, 2 slots ≡ 1
+TRAIN_FAMILIES = ("mamba2-780m", "olmoe-1b-7b")   # autograd through SSD, MoE
+TRAIN_FAMILY_LAYERS, TRAIN_FAMILY_BATCH = 2, 2
+# train_loss against cross_entropy(forward) of the same parameters: equal,
+# except through moe_local, whose index_add_ accumulates with atomics on the
+# card in an order that varies between runs
+MOE_LOSS_RTOL = 1e-5
+
+
+def byte_view(t):
+    """A tensor's bytes, for byte-for-byte comparison."""
+    import torch
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+def expected_manifest(infos):
+    """The reference's flattened (key, shape, dtype) of ``{"params",
+    "opt"}``, from ``Model.infos()``' stacked tree and ``AdamWState``."""
+    import torch
+
+    def walk(tree, key, dtype=None):
+        if isinstance(tree, dict):
+            return [e for k in sorted(tree) for e in walk(tree[k], f"{key}/{k}", dtype)]
+        dt = dtype or tree.dtype
+        return [(key, list(tree.shape),
+                 "bfloat16" if dt == torch.bfloat16 else str(dt).split(".")[-1])]
+    return ([("opt/.step", [], "int32")] + walk(infos, "opt/.m", torch.float32)
+            + walk(infos, "opt/.v", torch.float32) + walk(infos, "params"))
+
+
+def train_path(args, dev, report):
+    """The training plane (module docstring, item 8): ``train()`` at
+    ``TRAIN_ARCH``'s full width with an injected failure and its recovery,
+    the checkpoint's format, then microbatched ≡ plain and 2 slots ≡ 1 at
+    ``TRAIN_CHECK_LAYERS`` layers, and one step of each of
+    ``TRAIN_FAMILIES``.  Every hard check raises.  Returns the path's
+    launch counts (the path runs none of the CLIMBER kernels)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDraws, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import Model, count_params, cross_entropy, named_params
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train import (AdamW, StepFailure, constant_lr, make_train_step,
+                                   replicate, shard_train_step, value_and_grad)
+
+    smoke = args.lm_smoke
+    seq, steps, every = (64, 6, 4) if smoke else (TRAIN_SEQ, TRAIN_STEPS, TRAIN_EVERY)
+    fail_at = every + 1                         # restores from step `every`
+    out = report.setdefault("train", {
+        "arch": TRAIN_ARCH, "smoke_widths": smoke, "seq": seq, "batch": TRAIN_BATCH,
+        "microbatches": TRAIN_MICRO, "steps": steps, "checkpoint_every": every,
+        "lr": TRAIN_LR, "kv_chunk": TRAIN_KV_CHUNK, "fail_at": fail_at})
+    out["reduced"] = {"batch": f"{TRAIN_BATCH} of train_4k's 256 sequences",
+                      "steps": f"{steps}",
+                      "checkpoints": f"at steps {every} and {steps} (TRAIN_EVERY)"}
+    cfg = get_config(TRAIN_ARCH, smoke=smoke)
+    out["params"] = count_params(Model(cfg).infos())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+
+    # ---- (a) train() at full width, failing once at fail_at ---------------
+    class FailOnce(TokenDraws):
+        """The pipeline's draws, raising StepFailure the first time step
+        ``fail_at``'s batch is drawn: that step fails before it computes."""
+        failed = False
+
+        def phase(self, seed, step, lo, n, vocab):
+            if step == fail_at and not self.failed:
+                self.failed = True
+                raise StepFailure(f"injected at step {step}")
+            return super().phase(seed, step, lo, n, vocab)
+
+    events, audit = [], {}
+
+    def on_event(kind, info):
+        now = time.perf_counter()
+        if kind == "checkpoint" and info["step"] == fail_at - 1:
+            audit["saved"] = [x.detach().to("cpu", copy=True)
+                              for x in tree_leaves(info["state"])]
+        if kind == "restored":
+            saved = audit.pop("saved")
+            got = list(tree_leaves(info["state"]))
+            audit["restored_leaves"] = len(got)
+            audit["restored_bytes"] = sum(x.numel() * x.element_size() for x in got)
+            audit["restored_equal"] = len(got) == len(saved) and all(
+                a.dtype == b.dtype and a.shape == b.shape and
+                torch.equal(byte_view(a.cpu()), byte_view(b)) for a, b in zip(got, saved))
+            del saved
+        events.append((kind, dict({k: v for k, v in info.items() if k != "state"},
+                                  t=now)))
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="smoke_train_", dir=ROOT / "build"))
+    try:
+        (params, losses), wall = sync_wall(lambda: train(
+            TRAIN_ARCH, smoke=smoke, steps=steps, batch=TRAIN_BATCH, seq=seq,
+            ckpt_dir=str(ckpt), checkpoint_every=every, lr=TRAIN_LR,
+            kv_chunk=TRAIN_KV_CHUNK, microbatches=TRAIN_MICRO, log_every=1,
+            seed=args.seed, data_mode="periodic", device=dev, draws=FailOnce(),
+            on_event=on_event))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # the checkpoint is the reference's format
+        final = ckpt / f"step_{steps:08d}"
+        man = json.loads((final / "MANIFEST.json").read_text())
+        got_keys = [(e["key"], e["shape"], e["dtype"]) for e in man["keys"]]
+        want_keys = expected_manifest(Model(cfg).infos())
+        if got_keys != want_keys:
+            raise SystemExit(f"train: the checkpoint's keys differ from the reference's "
+                             f"({len(got_keys)} vs {len(want_keys)})")
+        import zipfile
+        with zipfile.ZipFile(final / "shard_p0.npz") as zf:
+            descr = {e["dtype"]: zf.open(e["name"] + ".npy").read(128)
+                     for e in man["keys"]}
+        if b"'descr': '<V2'" not in descr["bfloat16"]:
+            raise SystemExit("train: a bf16 leaf is not stored as '<V2'")
+        ckpt_gb = sum(f.stat().st_size for f in final.iterdir()) / 1e9
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    step_ev = [i for k, i in events if k == "step"]
+    kinds = [(k, i["step"]) for k, i in events if k != "step"]
+    want = ([("checkpoint", every), ("failure", fail_at), ("restored", every)]
+            + [("checkpoint", s) for s in range(2 * every, steps + 1, every)])
+    if [e for e in kinds if e[0] != "straggler"] != want:
+        raise SystemExit(f"train: recovery events {kinds}, expected {want}")
+    first, again = [i["loss"] for i in step_ev if i["step"] == fail_at - 1]
+    if first != again:
+        raise SystemExit(f"train: step {fail_at - 1}'s loss after the restore {again!r} "
+                         f"differs from its first {first!r}")
+    if not audit.get("restored_equal"):
+        raise SystemExit("train: the restored parameters and moments differ from the "
+                         "tensors that were saved")
+    if not all(math.isfinite(i["loss"]) and math.isfinite(i["grad_norm"]) for i in step_ev):
+        raise SystemExit("train: a non-finite loss or grad norm")
+    head, tail = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not tail < head:
+        raise SystemExit(f"train: the loss did not fall ({head:.4f} -> {tail:.4f})")
+    secs = [i["data_s"] + i["step_s"] for i in step_ev]
+    tokens = TRAIN_BATCH * seq
+    # a checkpoint's seconds: from its step's event to its own; the
+    # restore's: from the failure's
+    after = lambda j: events[j][1]["t"] - events[j - 1][1]["t"]
+    save_s = [after(j) for j, (k, _) in enumerate(events) if k == "checkpoint"]
+    restore_s = [after(j) for j, (k, _) in enumerate(events) if k == "restored"]
+    out["run"] = {
+        "wall_s": wall, "steps_run": len(step_ev), "losses": losses,
+        "grad_norms": [i["grad_norm"] for i in step_ev],
+        "first_step_s": secs[0], "step_s": sum(secs[1:]) / len(secs[1:]),
+        "tokens_per_s": tokens * len(secs[1:]) / sum(secs[1:]),
+        "data_s": sum(i["data_s"] for i in step_ev[1:]) / len(secs[1:]),
+        "peak_memory_gb": peak, "checkpoint_gb": ckpt_gb, "save_s": save_s,
+        "restore_s": restore_s,
+        "loss_head_mean": head, "loss_tail_mean": tail,
+        "replayed_step": fail_at - 1, "replayed_loss": again,
+        "restored_leaves": audit["restored_leaves"],
+        "restored_gb": audit["restored_bytes"] / 1e9, "events": kinds}
+    say(f"train[{cfg.name}, seq {seq}, batch {TRAIN_BATCH} = {TRAIN_MICRO} x "
+        f"{TRAIN_BATCH // TRAIN_MICRO}]: " + json.dumps(
+            {a: (round(b, 4) if isinstance(b, float) else
+                 [round(x, 4) for x in b] if a in ("losses", "grad_norms", "save_s",
+                                                   "restore_s") else b)
+             for a, b in out["run"].items()}))
+    say(f"train: StepFailure at step {fail_at}, restored from step {fail_at - 1}: "
+        f"{audit['restored_leaves']} leaves byte-equal to those saved, step "
+        f"{fail_at - 1}'s loss bit-equal ({again!r}); the checkpoint's {len(got_keys)} "
+        f"keys and shapes are the reference's, bf16 as '<V2'")
+
+    # the split of one more step: data, forward + backward, optimizer
+    model = Model(cfg)
+    opt = AdamW(lr=constant_lr(TRAIN_LR))
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, seq, seed=args.seed, mode="periodic",
+                         device=dev)
+    state = opt.init(params)
+    batch, data_s = sync_wall(lambda: pipe.batch_at(steps))
+    (loss, grads), fb_s = sync_wall(lambda: value_and_grad(
+        model, params, batch, kv_chunk=TRAIN_KV_CHUNK, microbatches=TRAIN_MICRO))
+    _, opt_s = sync_wall(lambda: opt.update(grads, state, params))
+    del params, state, grads, batch
+    torch.cuda.empty_cache()
+    # the plain attention's part of it: one layer's flash_attention at the
+    # step's shapes, forward twice (remat recomputes it) and backward once,
+    # times layers × microbatches
+    from repro_torch.models.layers import flash_attention
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    shape = lambda h: (TRAIN_BATCH // TRAIN_MICRO, seq, h, cfg.head_dim)
+    q, k, v = (torch.randn(shape(h), generator=g, device=dev).bfloat16().requires_grad_()
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+
+    def attention():
+        with torch.no_grad():
+            flash_attention(q, k, v, causal=True, kv_chunk=TRAIN_KV_CHUNK)
+        o = flash_attention(q, k, v, causal=True, kv_chunk=TRAIN_KV_CHUNK)
+        torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+
+    attention()
+    _, attn_s = sync_wall(attention)
+    attn_s *= cfg.num_layers * TRAIN_MICRO
+    out["split"] = {"data_s": data_s, "forward_backward_s": fb_s, "optimizer_s": opt_s,
+                    "attention_s": attn_s,
+                    "attention_share": attn_s / (data_s + fb_s + opt_s)}
+    say("train split of one step: " + json.dumps(
+        {a: round(b, 4) for a, b in out["split"].items()}))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- (b) microbatched ≡ plain, 2 slots ≡ 1, at TRAIN_CHECK_LAYERS ----
+    ccfg = cfg.replace(num_layers=TRAIN_CHECK_LAYERS)
+    model = Model(ccfg)
+    init = model.init(torch.Generator(device=dev).manual_seed(args.seed + 1), dev)
+    batch = TokenPipeline(ccfg, TRAIN_BATCH, seq, seed=args.seed, mode="periodic",
+                          device=dev).batch_at(0)
+    runs = {}
+    for name, micro, slots in (("micro", TRAIN_MICRO, 1), ("plain", 1, 1),
+                               ("two_slots", TRAIN_MICRO // 2, 2)):
+        p = tree_map(torch.clone, init)
+        torch.cuda.reset_peak_memory_stats()
+        if slots == 1:
+            fn = make_train_step(model, opt, kv_chunk=TRAIN_KV_CHUNK, microbatches=micro)
+        else:
+            mesh = make_mesh(slots, [dev] * slots)
+            fn = shard_train_step(model, opt, mesh, kv_chunk=TRAIN_KV_CHUNK,
+                                  microbatches=micro)
+            p = replicate(p, mesh)
+        (p, _, met), secs = sync_wall(lambda: fn(p, opt.init(p[0] if slots > 1 else p),
+                                                 batch))
+        runs[name] = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                      "seconds": secs, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "params": named_params(p[0] if slots > 1 else p)}
+    a, b = runs["micro"], runs["two_slots"]
+    w_delta = max(float((a["params"][n].float() - b["params"][n].float()).abs().max())
+                  for n in a["params"])
+    checks = {"micro_vs_plain_loss_delta": abs(a["loss"] - runs["plain"]["loss"]),
+              "two_slots_vs_one_loss_rel": abs(b["loss"] - a["loss"]) / a["loss"],
+              "two_slots_vs_one_w_delta": w_delta}
+    for r in runs.values():
+        del r["params"]
+    runs_peaks = list(runs.values())
+    out["checks"] = dict(checks, layers=TRAIN_CHECK_LAYERS, runs=runs)
+    say(f"train checks [{TRAIN_CHECK_LAYERS} layers]: " + json.dumps(out["checks"],
+                                                                       default=float))
+    if not checks["micro_vs_plain_loss_delta"] < 5e-2:
+        raise SystemExit(f"train: microbatched loss differs from plain by "
+                         f"{checks['micro_vs_plain_loss_delta']}")
+    if not (checks["two_slots_vs_one_loss_rel"] <= 1e-5 and w_delta < 5e-2):
+        raise SystemExit(f"train: 2 slots differ from one: {checks}")
+    del init, batch, runs, a, b, p
+    torch.cuda.empty_cache()
+
+    # ---- (c) autograd through the SSD scan and moe_local ------------------
+    out["families"] = {}
+    for arch in TRAIN_FAMILIES:
+        fcfg = get_config(arch, smoke=smoke).replace(num_layers=TRAIN_FAMILY_LAYERS)
+        fmodel = Model(fcfg)
+        fparams = fmodel.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
+        fbatch = TokenPipeline(fcfg, TRAIN_FAMILY_BATCH, seq, seed=args.seed,
+                               mode="periodic", device=dev).batch_at(0)
+        torch.cuda.reset_peak_memory_stats()
+        (loss, grads), secs = sync_wall(lambda: value_and_grad(
+            fmodel, fparams, fbatch, kv_chunk=TRAIN_KV_CHUNK))
+        finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                   for g in grads)
+        with torch.no_grad():
+            ref = cross_entropy(fmodel(fparams, {"tokens": fbatch["tokens"][:, :-1]},
+                                       kv_chunk=TRAIN_KV_CHUNK), fbatch["tokens"][:, 1:])
+        _, _, stats = opt.update(grads, opt.init(fparams), fparams)
+        row = {"layers": fcfg.num_layers, "loss": float(loss), "forward_ce": float(ref),
+               "grad_norm": float(stats["grad_norm"]), "seconds": secs,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out["families"][arch] = row
+        say(f"train family[{arch}]: " + json.dumps(row))
+        if not (finite and math.isfinite(row["grad_norm"])):
+            raise SystemExit(f"train: {arch}'s loss or grads are not finite")
+        rtol = MOE_LOSS_RTOL if fcfg.family == "moe" else 0.0
+        if abs(row["loss"] - row["forward_ce"]) > rtol * abs(row["forward_ce"]):
+            raise SystemExit(f"train: {arch}'s train_loss {row['loss']!r} differs from "
+                             f"cross_entropy(forward) {row['forward_ce']!r}")
+        del fparams, grads, fbatch
+        torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out["seconds"] = time.perf_counter() - t_path
+    out["peak_memory_gb"] = max([peak] + [r["peak_memory_gb"] for r in runs_peaks]
+                                + [r["peak_memory_gb"] for r in out["families"].values()])
+    say(f"train-path launches: {launches} ({out['seconds']:.1f} s, peak device memory "
+        f"{out['peak_memory_gb']:.1f} GB)")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1889,8 +2218,9 @@ def main(argv=None) -> int:
     ap.add_argument("--frontier-shard", type=int, default=1_048_576,
                     help="series in each shard of the recall-frontier sweep")
     ap.add_argument("--lm-smoke", action="store_true",
-                    help="smoke widths for every LM architecture and a datastore "
-                         "of 2 steps (a CPU rehearsal)")
+                    help="smoke widths for every LM architecture, a datastore "
+                         "of 2 steps, and a train path of 64-token sequences "
+                         "for 6 steps (a CPU rehearsal)")
     ap.add_argument("--report", default=None,
                     help="also write the full JSON report to this path")
     args = ap.parse_args(argv)
@@ -2333,6 +2663,11 @@ def main(argv=None) -> int:
     # data is gone) ------------------------------------------------------------
     lm_launches = lm_path(args, dev, report)
     peak_gb = max(peak_gb, report["lm"]["peak_memory_gb"])
+
+    # ---- the training plane, launch counts zeroed (the lm path's weights
+    # are gone) ---------------------------------------------------------------
+    train_launches = train_path(args, dev, report)
+    peak_gb = max(peak_gb, report["train"]["peak_memory_gb"])
     # the paths' own shapes, checked against the plain versions after each
     # path's counts were read: their errors join the kernel rows
     for row in kernels:
@@ -2353,7 +2688,8 @@ def main(argv=None) -> int:
     say(f"peak device memory of the smoke: {peak_gb:.1f} GB")
     by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches,
                "net": net_launches, "mesh": mesh_launches,
-               "frontier": frontier_launches, "lm": lm_launches}
+               "frontier": frontier_launches, "lm": lm_launches,
+               "train": train_launches}
     for row in kernels:
         row["launches_by_path"] = {p_: c[row["name"]] for p_, c in by_path.items()}
 

@@ -1,5 +1,10 @@
-"""Store layouts for the fleet and the device mesh
-(``repro.distributed``'s counterpart)."""
+"""Store layouts for the fleet and the device mesh, and gradient
+compression (``repro.distributed``'s counterpart)."""
+from repro_torch.distributed.compression import (compression_ratio,
+                                                 dequantize_int8,
+                                                 ef_allreduce_leaf,
+                                                 ef_allreduce_tree,
+                                                 init_error_tree, quantize_int8)
 from repro_torch.distributed.store import (concat_stores, pad_store,
                                            shard_store, slot_range,
                                            stack_stores, store_from_arrays,
@@ -7,4 +12,6 @@ from repro_torch.distributed.store import (concat_stores, pad_store,
 
 __all__ = ["pad_store", "shard_store", "slot_range", "stack_stores",
            "concat_stores", "to_device", "store_to_arrays",
-           "store_from_arrays"]
+           "store_from_arrays", "quantize_int8", "dequantize_int8",
+           "ef_allreduce_leaf", "ef_allreduce_tree", "init_error_tree",
+           "compression_ratio"]

@@ -9,15 +9,23 @@ Conventions:
     leaves stacked on a leading ``layers`` dim; the parameters themselves
     hold one entry per layer (:mod:`repro_torch.models.params`) and the
     bodies loop over them in order;
-  * :meth:`Model.forward` is the shared body; ``prefill`` additionally
-    returns the KV/SSM cache and ``decode_step`` advances one token
+  * :meth:`Model.forward` is the shared body; :meth:`Model.train_loss`
+    adds next-token CE; ``prefill`` additionally returns the KV/SSM cache
+    and ``decode_step`` advances one token
     (:mod:`repro_torch.models.decoding`);
+  * remat follows ``cfg.remat`` as the reference's layer scan does, on the
+    same bodies (a layer of the dense / moe / ssm stacks, the encoder and
+    the decoder; a whole group of the hybrid and the vlm): ``"none"``
+    keeps every activation, ``"dots"`` and ``"full"`` run each body under
+    ``torch.utils.checkpoint`` (its input is kept, its insides recomputed
+    in the backward).  Remat changes memory, never values, and applies
+    only while autograd records;
   * the modality frontends of [audio]/[vlm] archs are STUBS: the batch
     provides precomputed frame / patch embeddings.
 
-Remat and the sharding constraints of the reference's layer scan wait for
-the sharding slice: :meth:`Model.constrain_acts` and
-:meth:`Model.constrain_kv` return their input.
+The sharding constraints of the reference's layer scan wait for the
+sharding slice: :meth:`Model.constrain_acts` and :meth:`Model.constrain_kv`
+return their input.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -39,6 +48,18 @@ def stack_infos(tree, n: int, axis_name: str = "layers"):
         return ParamInfo((n,) + tree.shape, (axis_name,) + tree.logical,
                          tree.dtype, tree.init, tree.scale)
     return {k: stack_infos(v, n, axis_name) for k, v in tree.items()}
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing per ``cfg.remat``.
+
+    A checkpointed body keeps only its input, one [B, S, D] residual,
+    where the reference's ``"dots"`` keeps each block's [B, S, D] output;
+    both recompute the rest in the backward.  Outside autograd (serving)
+    the body runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -175,67 +196,77 @@ class Model(nn.Module):
     def _backbone(self, params, x, *, kv_chunk=2048, img=None):
         """Token stream through the layers (no embed/unembed)."""
         cfg = self.cfg
+        layers = params["layers"]
 
         if cfg.family == "dense":
-            for lp in params["layers"]:
-                x = _dense_layer(lp, self.constrain_acts(x), cfg, kv_chunk=kv_chunk)
-            return x
+            def body(h, lp):
+                return _dense_layer(lp, self.constrain_acts(h), cfg, kv_chunk=kv_chunk)
 
-        if cfg.family == "moe":
-            for lp in params["layers"]:
-                h = self.constrain_acts(x)
+        elif cfg.family == "moe":
+            def body(h, lp):
+                h = self.constrain_acts(h)
                 a = L.gqa_attention(lp["attn"], L.rmsnorm(h, lp["ln1"]),
                                     cfg, causal=True, kv_chunk=kv_chunk)
                 h = h + a
-                x = h + self._moe_apply(lp["moe"], L.rmsnorm(h, lp["ln2"]))
-            return x
+                return h + self._moe_apply(lp["moe"], L.rmsnorm(h, lp["ln2"]))
 
-        if cfg.family == "ssm":
-            for lp in params["layers"]:
-                h = self.constrain_acts(x)
-                x = h + SSM.ssd_forward(lp["ssm"], L.rmsnorm(h, lp["ln"]), cfg)
-            return x
+        elif cfg.family == "ssm":
+            def body(h, lp):
+                h = self.constrain_acts(h)
+                return h + SSM.ssd_forward(lp["ssm"], L.rmsnorm(h, lp["ln"]), cfg)
 
-        if cfg.family == "hybrid":
+        elif cfg.family == "hybrid":
             shared = params["shared_attn"]
-            for gp in params["layers"]:
-                h = self.constrain_acts(x)
+
+            def body(h, gp):
+                h = self.constrain_acts(h)
                 for lp in gp:
                     h = h + SSM.ssd_forward(lp["ssm"], L.rmsnorm(h, lp["ln"]), cfg)
                 a = L.gqa_attention(shared["attn"], L.rmsnorm(h, shared["ln1"]),
                                     cfg, causal=True, kv_chunk=kv_chunk)
                 h = h + a
-                x = h + L.swiglu(shared["mlp"], L.rmsnorm(h, shared["ln2"]))
-            return x
+                return h + L.swiglu(shared["mlp"], L.rmsnorm(h, shared["ln2"]))
 
-        if cfg.family == "vlm":
-            for gp, cp in zip(params["layers"], params["cross_layers"]):
-                h = self.constrain_acts(x)
+        elif cfg.family == "vlm":
+            def body(h, gps):
+                gp, cp = gps
+                h = self.constrain_acts(h)
                 for lp in gp:
                     h = _dense_layer(lp, h, cfg, kv_chunk=kv_chunk)
                 # gated cross-attention onto the (stub) image embeddings
                 xk, xv = cross_kv(cp["attn"], img)
-                x = gated_cross_block(cp, h, xk, xv, cfg, kv_chunk)
-            return x
+                return gated_cross_block(cp, h, xk, xv, cfg, kv_chunk)
+            layers = list(zip(layers, params["cross_layers"]))
 
-        raise ValueError(cfg.family)
+        else:
+            raise ValueError(cfg.family)
+
+        run = _remat(body, cfg)
+        for lp in layers:
+            x = run(x, lp)
+        return x
 
     def _encode(self, params, frames, *, kv_chunk=2048):
         """Whisper encoder over stub frame embeddings [B, S_enc, D]."""
         cfg = self.cfg
-        h = frames
-        for lp in params["encoder"]:
+
+        def body(h, lp):
             h = self.constrain_acts(h)
             a = L.gqa_attention(lp["attn"], L.rmsnorm(h, lp["ln1"]), cfg,
                                 causal=False, kv_chunk=kv_chunk)
             h = h + a
-            h = h + L.swiglu(lp["mlp"], L.rmsnorm(h, lp["ln2"]))
+            return h + L.swiglu(lp["mlp"], L.rmsnorm(h, lp["ln2"]))
+
+        run = _remat(body, cfg)
+        h = frames
+        for lp in params["encoder"]:
+            h = run(h, lp)
         return L.rmsnorm(h, params["enc_norm"])
 
     def _decoder(self, params, x, enc, *, kv_chunk=2048):
         cfg = self.cfg
-        h = x
-        for lp in params["layers"]:
+
+        def body(h, lp):
             h = self.constrain_acts(h)
             a = L.gqa_attention(lp["self_attn"], L.rmsnorm(h, lp["ln1"]), cfg,
                                 causal=True, kv_chunk=kv_chunk)
@@ -245,13 +276,17 @@ class Model(nn.Module):
                                 cfg, causal=False, kv_override=(xk, xv),
                                 kv_chunk=kv_chunk)
             h = h + c
-            h = h + L.swiglu(lp["mlp"], L.rmsnorm(h, lp["ln2"]))
-        return h
+            return h + L.swiglu(lp["mlp"], L.rmsnorm(h, lp["ln2"]))
 
-    # ---------------- public entry point ----------------
+        run = _remat(body, cfg)
+        for lp in params["layers"]:
+            x = run(x, lp)
+        return x
+
+    # ---------------- public entry points ----------------
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
                 kv_chunk: int = 2048) -> torch.Tensor:
-        """Logits [B, S, V] for a full sequence (eval / datastore)."""
+        """Logits [B, S, V] for a full sequence (train / eval / datastore)."""
         cfg = self.cfg
         batch = batch_to(batch, params["embed"]["tok"].device)
         x = L.embed(params["embed"], batch["tokens"])
@@ -264,6 +299,14 @@ class Model(nn.Module):
         else:
             x = self._backbone(params, x, kv_chunk=kv_chunk)
         return L.unembed(params["embed"], x)
+
+    def train_loss(self, params, batch: Dict[str, torch.Tensor], *,
+                   kv_chunk: int = 2048) -> torch.Tensor:
+        """Next-token CE (fp32 scalar).  ``batch["tokens"]`` is [B, S+1]."""
+        tokens = torch.as_tensor(batch["tokens"], device=params["embed"]["tok"].device)
+        logits = self.forward(params, {**batch, "tokens": tokens[:, :-1]},
+                              kv_chunk=kv_chunk)
+        return cross_entropy(logits, tokens[:, 1:])
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:

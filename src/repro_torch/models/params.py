@@ -135,6 +135,18 @@ def tree_leaves(tree):
         yield tree
 
 
+def tree_map(fn: Callable, tree):
+    """``fn`` on every leaf of a nested dict / list / NamedTuple tree, the
+    structure kept (a plain tuple comes back as a list)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def named_params(params, prefix: str = "") -> Dict[str, Any]:
     """``{dotted name: tensor}`` of a parameter tree (``layers.3.attn.wq``)."""
     items = params.items() if isinstance(params, dict) else enumerate(params)

@@ -129,9 +129,13 @@ def ssd_forward_with_state(p, x: torch.Tensor, cfg: ModelConfig
     for j in range(nc):
         xb, bb, cb, dtb, dab = xq[:, j], bq[:, j], cq[:, j], dtq[:, j], daq[:, j]
         cum = torch.cumsum(dab, dim=1)                    # [B, Q, H]
-        # intra-chunk: decay(i, j) = exp(cum_i - cum_j), i >= j
+        # intra-chunk: decay(i, j) = exp(cum_i - cum_j), i >= j.  The
+        # reference exponentiates every (i, j) and masks after, so where
+        # exp(cum_i - cum_j) overflows above the diagonal its backward is
+        # 0 · inf = NaN; masking the exponent first gives the same forward
+        # (exp(-inf) = 0) and a finite backward.
         diff = cum[:, :, None, :] - cum[:, None, :, :]    # [B, Q, Q, H]
-        decay = torch.where(mask[None, :, :, None], torch.exp(diff), 0.0)
+        decay = torch.exp(torch.where(mask[None, :, :, None], diff, float("-inf")))
         scores = torch.einsum("bin,bjn->bij", cb, bb)     # [B, Q, Q]
         w = scores[..., None] * decay * dtb[:, None, :, :]
         y_intra = torch.einsum("bijh,bjhp->bihp", w, xb)  # [B, Q, H, hd]

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the entry points run
-on the card unless the caller names another device — with no card they
-raise instead of dropping to the CPU.
+``chip_smoke.py`` imports JAX, the JAX package or ``ml_dtypes`` (the port
+reads and writes bf16 without it), and the entry points run on the card
+unless the caller names another device — with no card they raise instead
+of dropping to the CPU.
 """
 import ast
 import shutil
@@ -19,7 +20,7 @@ from repro_torch.utils.config import ClimberConfig  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -107,7 +108,7 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 def test_scan_sees_the_fleet_packages():
     rel = {str(p.relative_to(REPO / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
     for pkg, modules in (("obs", {"registry", "tracer", "profile"}),
-                         ("distributed", {"store"}),
+                         ("distributed", {"store", "compression"}),
                          ("fleet", {"fleet", "router", "device_plan", "placement",
                                     "engine"}),
                          ("fleet/lifecycle", {"wal", "snapshot", "compactor", "merge"}),
@@ -115,7 +116,10 @@ def test_scan_sees_the_fleet_packages():
                                      "decoding"}),
                          ("configs", {"internlm2_1_8b", "mamba2_780m"}),
                          ("serve", {"engine"}),
-                         ("data", {"tokens"})):
+                         ("data", {"tokens"}),
+                         ("train", {"optimizer", "train_step", "checkpoint",
+                                    "fault_tolerance"}),
+                         ("launch", {"mesh", "train"})):
         assert {f"{pkg}/{m}.py" for m in modules | {"__init__"}} <= rel
 
 
