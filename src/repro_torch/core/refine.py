@@ -42,7 +42,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import PartitionStore
-from repro_torch.distributed.store import shard_store, slot_range
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.refine_topk import PAD_D2, masked_distances, topk_flat
 from repro_torch.launch.mesh import as_mesh
@@ -171,6 +170,10 @@ def refine_sharded(store: PartitionStore, queries: torch.Tensor,
     Returns ``(dist, gid)`` on the lead device, equal to :func:`refine`'s
     bit for bit.
     """
+    # imported here: distributed.store imports core.index, whose package
+    # imports this module
+    from repro_torch.distributed.store import shard_store, slot_range
+
     mesh = as_mesh(mesh)
     if slots is None:
         slots = shard_store(store, mesh)

@@ -11,7 +11,9 @@ The reference's ``psum`` over a manual ``shard_map`` axis becomes a sum
 over the slots of a :class:`~repro_torch.launch.mesh.DeviceMesh`: each
 slot's tensor is quantised on its own device, the dequantised payloads
 gather to the lead device and sum there in slot order.  Rounding is half to
-even and the scale divides in IEEE fp32, as in the reference.
+even and the scale divides in IEEE fp32, as in the reference.  A stacked
+leaf of the reference's is a list of per-layer tensors in the port's
+parameter trees; its entries share one scale (:func:`stacked_groups`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Any, List, Sequence, Tuple
 import torch
 
 from repro_torch.launch.mesh import DeviceMesh
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import tree_map
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,26 +62,73 @@ def ef_allreduce_leaf(grads: Sequence[torch.Tensor], errors: Sequence[torch.Tens
     return total / float(mesh.size), new_errors
 
 
+def stacked_groups(tree) -> List[List[torch.Tensor]]:
+    """The leaves of ``tree`` grouped as the reference's stacked leaves.
+
+    A list whose entries share one structure and shapes is the port's
+    unstacked ``layers`` dim (:mod:`repro_torch.models.params`): leaf k of
+    every entry forms one group, in layer order, as ``[L, ...]`` is one
+    leaf in the reference.  Any other list is a sequence of leaves, as in
+    ``jax.tree_util``.  Each group is a list of tensors."""
+    if isinstance(tree, dict):
+        return [g for v in tree.values() for g in stacked_groups(v)]
+    if isinstance(tree, (list, tuple)):
+        parts = [stacked_groups(v) for v in tree]
+        shapes = [[[tuple(x.shape) for x in g] for g in p] for p in parts]
+        if parts and all(s == shapes[0] for s in shapes):
+            return [[x for p in parts for x in p[k]] for k in range(len(parts[0]))]
+        return [g for p in parts for g in p]
+    return [[tree]]
+
+
+def _ef_group(grads: Sequence[List[torch.Tensor]], errors: Sequence[List[torch.Tensor]],
+              mesh: DeviceMesh) -> Tuple[List[torch.Tensor], List[List[torch.Tensor]]]:
+    """:func:`ef_allreduce_leaf` for one stacked leaf held as ``grads[s]``,
+    slot ``s``'s list of its entries: one int8 scale over every entry."""
+    deqs, new_errors = [], []
+    for g, e in zip(grads, errors):
+        g32 = [x.float() + err for x, err in zip(g, e)]
+        amax = torch.stack([torch.max(torch.abs(x)) for x in g32]).max()
+        scale = torch.clamp_min(amax, 1e-12) / 127.0
+        deq = [dequantize_int8(torch.clamp(torch.round(x / scale), -127, 127)
+                               .to(torch.int8), scale) for x in g32]
+        new_errors.append([x - d for x, d in zip(g32, deq)])
+        deqs.append(deq)
+    reduced = []
+    for i in range(len(deqs[0])):
+        total = deqs[0][i].to(mesh.lead)
+        for deq in deqs[1:]:
+            total = total + deq[i].to(mesh.lead)
+        reduced.append(total / float(mesh.size))
+    return reduced, new_errors
+
+
 def ef_allreduce_tree(grads: Sequence[Any], errors: Sequence[Any], mesh: DeviceMesh
                       ) -> Tuple[Any, List[Any]]:
-    """Tree version: ``grads[s]`` and ``errors[s]`` are slot ``s``'s trees.
-    Returns (the reduced tree on the lead device, each slot's new error
-    tree)."""
-    flat_g = [list(tree_leaves(g)) for g in grads]
-    flat_e = [list(tree_leaves(e)) for e in errors]
+    """Tree version: ``grads[s]`` and ``errors[s]`` are slot ``s``'s trees,
+    in the port's layout.  Each stacked leaf (:func:`stacked_groups`) is
+    quantised under one scale, as the reference quantises its ``[L, ...]``
+    leaf.  Returns (the reduced tree on the lead device, each slot's new
+    error tree), both in the port's layout."""
+    if not len(grads) == len(errors) == mesh.size:
+        raise ValueError(f"{len(grads)} grads and {len(errors)} errors for "
+                         f"{mesh.size} slots")
+    groups_g = [stacked_groups(g) for g in grads]
+    groups_e = [stacked_groups(e) for e in errors]
     out_g, out_e = [], [[] for _ in grads]
-    for i in range(len(flat_g[0])):
-        rg, ne = ef_allreduce_leaf([g[i] for g in flat_g], [e[i] for e in flat_e], mesh)
+    for k in range(len(groups_g[0])):
+        rg, ne = _ef_group([g[k] for g in groups_g], [e[k] for e in groups_e], mesh)
         out_g.append(rg)
         for s, x in enumerate(ne):
             out_e[s].append(x)
-    it = iter(out_g)
-    reduced = tree_map(lambda _: next(it), grads[0])
-    new_errors = []
-    for s in range(len(grads)):
-        it_s = iter(out_e[s])
-        new_errors.append(tree_map(lambda _: next(it_s), grads[s]))
-    return reduced, new_errors
+
+    def rebuild(groups, like):
+        order = {id(x): (k, i) for k, g in enumerate(stacked_groups(like))
+                 for i, x in enumerate(g)}
+        return tree_map(lambda x: groups[order[id(x)][0]][order[id(x)][1]], like)
+
+    return rebuild(out_g, grads[0]), [rebuild(out_e[s], grads[s])
+                                      for s in range(len(grads))]
 
 
 def init_error_tree(params: Any) -> Any:
@@ -88,8 +137,9 @@ def init_error_tree(params: Any) -> Any:
 
 
 def compression_ratio(tree: Any) -> float:
-    """Wire-bytes ratio of int8+scale vs fp32 for a gradient tree."""
-    leaves = list(tree_leaves(tree))
-    total_f32 = sum(x.numel() * 4 for x in leaves)
-    total_q = sum(x.numel() * 1 + 4 for x in leaves)
+    """Wire-bytes ratio of int8+scale vs fp32 for a gradient tree: one
+    4-byte scale per stacked leaf (:func:`stacked_groups`)."""
+    groups = stacked_groups(tree)
+    total_f32 = sum(x.numel() * 4 for g in groups for x in g)
+    total_q = sum(sum(x.numel() for x in g) + 4 for g in groups)
     return total_q / total_f32

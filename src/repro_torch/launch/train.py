@@ -51,8 +51,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
     (``data_s``) and for forward, backward and update (``step_s``).  A
     ``checkpoint`` or ``restored`` event also carries ``state``, the live
     tree ``{"params", "opt"}`` just saved or restored, for a caller that
-    audits it.  The update is in place, so a failed step's state is
-    recovered only from a checkpoint."""
+    audits it.  A step whose loss is not finite leaves the parameters and
+    the optimizer state as they were (the train step checks the loss
+    before its in-place update), so its retry starts from the last good
+    state, as the reference's driver discards such a step's new state."""
     cfg = get_config(arch, smoke=smoke)
     model = Model(cfg)
     mesh = as_mesh(mesh)

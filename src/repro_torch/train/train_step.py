@@ -21,6 +21,7 @@ ported.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -90,13 +91,26 @@ def make_train_step(model, opt: AdamW, *, kv_chunk: int = 2048,
     microbatches > 1 enables gradient accumulation: the global batch is
     split along dim 0, bounding in-flight activations to one microbatch.
     The update is in place: ``params'`` and ``opt_state'`` hold the tensors
-    passed in."""
+    passed in.  A step whose loss is not finite applies no update: the
+    parameters and the state stay as they were (:func:`skipped`)."""
     def train_step(params, opt_state: AdamWState, batch):
         loss, grads = value_and_grad(model, params, batch, kv_chunk=kv_chunk,
                                      microbatches=microbatches)
+        if not math.isfinite(float(loss)):
+            return params, opt_state, skipped(opt, opt_state, loss)
         params, opt_state, stats = opt.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, **stats}
     return train_step
+
+
+def skipped(opt: AdamW, state: AdamWState, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The metrics of a step whose loss is not finite.  The reference's
+    driver discards such a step's new state (``repro.launch.train``); the
+    port's update is in place, so the step checks the loss first and
+    leaves the state alone: NaN grad norm, the lr the step would have
+    used."""
+    return {"loss": loss, "grad_norm": torch.full((), math.nan, device=loss.device),
+            "lr": opt.lr(state.step + 1)}
 
 
 def shard_train_step(model, opt: AdamW, mesh: DeviceMesh, *,
@@ -126,6 +140,8 @@ def shard_train_step(model, opt: AdamW, mesh: DeviceMesh, *,
                                                microbatches=microbatches))
         lead = mesh.lead
         loss = sum(part.to(lead) for part, _ in per_slot) / d
+        if not math.isfinite(float(loss)):
+            return params, opt_state, skipped(opt, opt_state, loss)
         grads = [sum(g[i].to(lead, torch.float32) for _, g in per_slot) / d
                  for i in range(len(per_slot[0][1]))]
         del per_slot

@@ -5,6 +5,7 @@ unless the caller names another device — with no card they raise instead
 of dropping to the CPU.
 """
 import ast
+import os
 import shutil
 import subprocess
 import sys
@@ -152,3 +153,20 @@ def test_lm_plane_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(Model(cfg), params)
     Engine(Model(cfg), params, device="cpu").step()
+
+
+def test_distributed_modules_import_first():
+    """Each of these imports as a fresh interpreter's first import (an
+    import cycle through ``core`` once broke all three)."""
+    mods = ["repro_torch.distributed", "repro_torch.distributed.store",
+            "repro_torch.distributed.compression"]
+    code = ("import subprocess, sys\n"
+            f"for m in {mods!r}:\n"
+            "    r = subprocess.run([sys.executable, '-c', 'import ' + m],\n"
+            "                       capture_output=True, text=True)\n"
+            "    print(m, r.returncode, r.stderr.strip().splitlines()[-1:])\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) == 3 and all(line.split()[1] == "0" for line in lines), lines

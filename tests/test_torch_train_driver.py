@@ -49,7 +49,7 @@ from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.distributed import compression as t_comp  # noqa: E402
 from repro_torch.launch import make_mesh  # noqa: E402
 from repro_torch.launch.train import train as t_train  # noqa: E402
-from repro_torch.models import Model as TModel, params_from_numpy  # noqa: E402
+from repro_torch.models import Model as TModel, named_params, params_from_numpy  # noqa: E402
 from repro_torch.train import checkpoint as t_ckpt  # noqa: E402
 from repro_torch.train import fault_tolerance as t_ft  # noqa: E402
 from repro_torch.train.optimizer import AdamWState  # noqa: E402
@@ -301,6 +301,44 @@ def test_error_feedback_keeps_the_mean_over_steps():
     assert float((total - true_total).abs().max()) <= float(scale) + 1e-5
 
 
+def test_ef_allreduce_one_scale_per_stacked_leaf():
+    """A model-shaped gradient tree in the port's layout (per-layer lists)
+    against the reference's stacked tree, two slots, layer l scaled by
+    1000**l: one int8 scale per stacked leaf, so the reduced mean, the
+    errors and the wire ratio are the reference's."""
+    tm = TModel(t_get_config(ARCH, smoke=True))
+    rng = np.random.default_rng(7)
+
+    def draw(info):
+        if not isinstance(info, dict):
+            x = rng.standard_normal(info.shape).astype(np.float32)
+            if info.logical[0] == "layers":
+                x = x * (1000.0 ** np.arange(info.shape[0], dtype=np.float32)
+                         ).reshape((-1,) + (1,) * (x.ndim - 1))
+            return x
+        return {k: draw(v) for k, v in info.items()}
+
+    slots = [draw(tm.infos()) for _ in range(2)]
+    port = [params_from_numpy(t, tm.infos(), device="cpu", dtype=torch.float32)
+            for t in slots]
+    red, err = t_comp.ef_allreduce_tree(port, [t_comp.init_error_tree(g) for g in port],
+                                        make_mesh(2, ["cpu"] * 2))
+    stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *slots)
+    j_red, j_err = jax.vmap(lambda g, e: j_comp.ef_allreduce_tree(g, e, "pod"),
+                            axis_name="pod")(stacked, j_comp.init_error_tree(stacked))
+    as_port = lambda t: params_from_numpy(jax.tree_util.tree_map(np.asarray, t),
+                                          tm.infos(), device="cpu", dtype=torch.float32)
+    want = as_port(jax.tree_util.tree_map(lambda x: x[0], j_red))
+    for (name, got), ref in zip(named_params(red).items(), named_params(want).values()):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6, atol=0,
+                                   err_msg=name)
+    for s in range(2):
+        want_e = as_port(jax.tree_util.tree_map(lambda x: x[s], j_err))
+        for got, ref in zip(named_params(err[s]).values(), named_params(want_e).values()):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6, atol=0)
+    assert t_comp.compression_ratio(port[0]) == j_comp.compression_ratio(slots[0])
+
+
 # ----------------------------------------------------------------------
 # train()
 # ----------------------------------------------------------------------
@@ -367,3 +405,65 @@ def test_train_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_train(ARCH, steps=1)
+
+
+def test_non_finite_loss_leaves_the_state(monkeypatch):
+    """A step whose loss is NaN applies no update: parameters, moments and
+    the step count stay byte-equal, on one device and on two slots."""
+    from repro_torch.train import (AdamW, constant_lr, make_train_step, replicate,
+                                   shard_train_step)
+    tm = TModel(t_get_config(ARCH, smoke=True))
+    opt = AdamW(lr=constant_lr(1e-3))
+    batch = {"tokens": torch.randint(0, 256, (4, 17), generator=torch.Generator().manual_seed(0))}
+    params = tm.init(torch.Generator().manual_seed(0), "cpu", torch.float32)
+    state = opt.init(params)
+    params, state, _ = make_train_step(tm, opt, kv_chunk=16)(params, state, batch)
+    snap = lambda t: [x.clone() for x in t_params_leaves(t)]
+    before = snap({"p": params, "s": state})
+    real = TModel.train_loss
+    monkeypatch.setattr(TModel, "train_loss",
+                        lambda self, *a, **kw: real(self, *a, **kw) * float("nan"))
+    p2, s2, met = make_train_step(tm, opt, kv_chunk=16)(params, state, batch)
+    assert not np.isfinite(float(met["loss"])) and int(s2.step) == 1
+    assert all(torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+               for a, b in zip(before, snap({"p": p2, "s": s2})))
+    mesh = make_mesh(2, ["cpu"] * 2)
+    slots = replicate(params, mesh)
+    p3, s3, _ = shard_train_step(tm, opt, mesh, kv_chunk=16)(slots, state, batch)
+    assert all(torch.equal(a, b) for a, b in zip(before, snap({"p": p3[0], "s": s3})))
+
+
+def t_params_leaves(tree):
+    from repro_torch.models.params import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def test_train_retries_a_non_finite_step_from_the_last_good_state(monkeypatch):
+    """No checkpoint directory, a NaN loss injected into the third
+    ``train_loss`` call (step 2): the retry starts from the parameters that
+    step 2 first saw, byte for byte, and the run completes."""
+    seen, events = [], []
+    real = TModel.train_loss
+
+    def train_loss(self, params, batch, **kw):
+        seen.append([x.detach().clone() for x in t_params_leaves(params)])
+        loss = real(self, params, batch, **kw)
+        return loss * float("nan") if len(seen) == 3 else loss
+
+    monkeypatch.setattr(TModel, "train_loss", train_loss)
+    def on_event(kind, info):            # the live state, copied as it is now
+        if "state" in info:
+            info = dict(info, state=[x.detach().clone()
+                                     for x in t_params_leaves(info["state"])])
+        events.append((kind, info))
+
+    _, losses = t_train(ARCH, steps=4, device="cpu", draws=JaxTokenDraws(),
+                        on_event=on_event, **TRAIN_KW)
+    kinds = [(k, i["step"]) for k, i in events if k not in ("step", "straggler")]
+    assert kinds == [("failure", 2), ("restored", 0)]
+    assert all(np.isfinite(losses)) and len(losses) == 6
+    assert all(torch.equal(a, b) for a, b in zip(seen[2], seen[3]))
+    restored = dict(events)["restored"]["state"]     # params, opt step, m, v
+    n = len(seen[2])
+    assert int(restored[n]) == 2
+    assert all(torch.equal(a, b) for a, b in zip(restored[:n], seen[2]))
