@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's eight paths once on one NVIDIA card, the first six at
+Drives the port's nine paths once on one NVIDIA card, the first six at
 the paper's configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10,
 c=3000, K=500), with every kernel's launch count zeroed just before each
 path and read just after it:
@@ -120,7 +120,33 @@ path and read just after it:
    After its counts are read, ``paa``, ``pivot_rank`` (m = 6),
    ``refine_topk`` (n = 2048, K = 16) and ``pairwise_l2`` are held against
    their plain versions and timed at the path's shapes.
-8. **train**, the training plane, after the lm path's weights are freed
+8. **tp**, the model axis, after the lm path's weights are freed (it runs
+   none of the CLIMBER kernels: its launch counts are zeros).  Every mesh
+   is slots of this one card (``make_mesh(shape, ("data", "model"),
+   [card] * n)``), so no number of it says what several cards gain.
+   (a) internlm2-1.8b at full width, bf16, on ``TP_MESH`` = (1, 4) (its
+   8 kv heads split): ``forward`` of 8 × 256 tokens against one device by
+   the lm rules (the greedy token equal where the top-1/top-2 gap exceeds
+   0.3), then ``prefill`` of the 8 rows and 16 ``decode_step`` ticks, the
+   mesh fed the one-device run's greedy tokens, each tick's logits by the
+   same rule, with tick ms, tokens/s and one profiled tick's kernel
+   launches and device ms beside the one-device run's; (b) fp32 at full
+   width on ``TP_DECODE_MESH`` = (1, 16), the production model width (kv =
+   8 does not divide: the cache splits by sequence), a 255-token prefill
+   and 2 ticks under ``set_decode_shard`` against one device, every logit
+   within 1e-3·(1+|logit|); (c) olmoe-1b-7b at full width in fp32, 4 of its
+   16 layers, 4 × 64 tokens on (2, 2) against each data half run alone on
+   one device (the MoE capacity counts one data shard's tokens), within
+   1e-3·(1+|logit|); (d) the train step at full width on (2, 4), sequence
+   1,024, batch 8, 3 steps (AdamW, lr 3e-4) against the one-device step,
+   which runs first and is kept on the host: every loss and ``embed/out``
+   within 5e-2 (the reference's bound), step s, tokens/s and peak memory
+   beside the one-device step's; (e) its bf16 params (3.8 GB) saved from
+   (2, 4) with ``save_checkpoint(layout=)`` under ``build/`` and restored
+   onto (2, 2) byte-equal, the directory removed; (f)
+   ``make_production_mesh(devices=[card] * 256)`` lays the trained params
+   out and gathers them back byte-equal.
+9. **train**, the training plane, after the tp path's weights are freed
    (it runs none of the CLIMBER kernels: its launch counts are zeros):
    (a) ``train()`` of internlm2-1.8b (``TRAIN_ARCH``) at its full width,
    seeded random bf16 weights, ``remat="dots"``, train_4k's sequence of
@@ -1900,6 +1926,321 @@ def lm_recall_split(index, q, qp, datastore, i_ex, d_ex, w):
     return split
 
 
+TP_ARCH, TP_MOE_ARCH = "internlm2-1.8b", "olmoe-1b-7b"
+TP_MESH = (1, 4)              # kv = 8 divides by 4: the cache splits by kv heads
+TP_DECODE_MESH = (1, 16)      # the production model width: kv = 8 does not divide,
+                              # the cache splits by sequence (set_decode_shard)
+TP_MOE_MESH = (2, 2)
+TP_TRAIN_MESH, TP_RESHARD_MESH = (2, 4), (2, 2)
+TP_ROWS, TP_PROMPT, TP_TICKS, TP_MAX_LEN = 8, 256, 16, 512
+TP_FP32_PROMPT, TP_FP32_MAX_LEN, TP_FP32_TICKS = 255, 256, 2
+TP_MOE_LAYERS, TP_MOE_ROWS, TP_MOE_SEQ = 4, 4, 64     # of olmoe's 16 layers
+TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS = 1024, 8, 3
+TP_FP32_TOL = 1e-3            # fp32 logits: within 1e-3·(1+|logit|)
+TP_TRAIN_TOL = 5e-2           # the reference's sharded-step bound
+
+
+def lm_rule(got, full, label):
+    """The lm path's bf16 rule on logits [..., V]: the greedy token equal
+    wherever ``full``'s top-1/top-2 gap exceeds 0.3; finite; max |Δ|
+    reported.  Raises; returns the numbers."""
+    import torch
+    got, full = got.float().reshape(-1, got.shape[-1]), full.float().reshape(-1, full.shape[-1])
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(full).all())):
+        raise SystemExit(f"tp [{label}]: non-finite logits")
+    top2 = torch.topk(full, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 0.3
+    same = got.argmax(-1) == full.argmax(-1)
+    if bool((~same & clear).any()):
+        raise SystemExit(f"tp [{label}]: the greedy token differs where the gap exceeds 0.3")
+    return {"positions": int(full.shape[0]), "max_abs_delta": float((got - full).abs().max()),
+            "max_abs_logit": float(full.abs().max()), "gap_over_0.3": int(clear.sum()),
+            "argmax_equal": int(same.sum())}
+
+
+def fp32_rule(got, full, label):
+    """Every logit within ``TP_FP32_TOL``·(1+|logit|).  Raises."""
+    import torch
+    rel = float(((got.float() - full.float()).abs() / (1 + full.float().abs())).max())
+    if not (rel <= TP_FP32_TOL and bool(torch.isfinite(got).all())):
+        raise SystemExit(f"tp [{label}]: |Δ|/(1+|logit|) {rel} beyond {TP_FP32_TOL}")
+    return rel
+
+
+def profile_tick(fn):
+    """(kernel launches, device busy ms) of one ``fn()`` under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3
+
+
+def tp_path(args, dev, report):
+    """The model axis (module docstring, item 8): (a) internlm2-1.8b on
+    ``TP_MESH`` — forward, prefill and ``TP_TICKS`` decode ticks against one
+    device; (b) on ``TP_DECODE_MESH``, fp32 decode through
+    ``set_decode_shard``; (c) olmoe-1b-7b on ``TP_MOE_MESH`` against each
+    data half alone; (d) the train step on ``TP_TRAIN_MESH`` against the
+    one-device step; (e) a params checkpoint saved from it restored onto
+    ``TP_RESHARD_MESH``; (f) the production mesh's layout round trip.
+    Every mesh is slots of this one card.  Every hard check raises.
+    Returns the path's launch counts (it runs none of the CLIMBER
+    kernels)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import make_mesh, make_production_mesh
+    from repro_torch.models import Model, decode_step, prefill
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import named_params, tree_map
+    from repro_torch.train import (AdamW, constant_lr, make_train_step,
+                                   restore_checkpoint, save_checkpoint, shard_train_step)
+
+    smoke = args.lm_smoke
+    mesh_of = lambda shape: make_mesh(shape, ("data", "model"), [dev] * (shape[0] * shape[1]))
+    decode_mesh = (1, 4) if smoke else TP_DECODE_MESH     # smoke widths have 4 heads
+    out = report.setdefault("tp", {"arch": TP_ARCH, "smoke_widths": smoke,
+                                   "note": "every mesh is slots of one card: no number "
+                                           "here says what several cards gain"})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+    peaks = []
+
+    # ---- (a) internlm2 on TP_MESH: forward, prefill, decode ticks -------
+    cfg = get_config(TP_ARCH, smoke=smoke)
+    one = Model(cfg)
+    params = one.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
+    mesh = mesh_of(TP_MESH)
+    tp = Model(cfg, mesh=mesh)
+    pieces = tp.param_layout().shard(params)
+    pipe = TokenPipeline(cfg, global_batch=TP_ROWS, seq_len=TP_PROMPT, seed=args.seed,
+                         device=dev)
+    prompt = pipe.batch_at(0)["tokens"][:, :TP_PROMPT]
+    row = {"mesh": list(TP_MESH), "rows": TP_ROWS, "prompt": TP_PROMPT,
+           "ticks": TP_TICKS, "max_len": TP_MAX_LEN}
+    with torch.no_grad():
+        full = one(params, {"tokens": prompt}, kv_chunk=PREFILL_CHUNK)
+        row["forward"] = lm_rule(tp(pieces, {"tokens": prompt}, kv_chunk=PREFILL_CHUNK),
+                                 full, "forward")
+        del full
+
+        def serve(model, ps, forced=None):
+            (lg, cache), pre_s = sync_wall(lambda: prefill(
+                model, ps, {"tokens": prompt}, max_len=TP_MAX_LEN, kv_chunk=PREFILL_CHUNK))
+            logits, toks, ticks = [lg[:, -1]], [], []
+            for i in range(TP_TICKS):
+                tok = lg[:, -1:].argmax(-1).int() if forced is None else forced[i]
+                toks.append(tok)
+                (lg, cache), secs = sync_wall(lambda: decode_step(model, ps, cache, tok))
+                logits.append(lg[:, -1])
+                ticks.append(secs)
+            launches, busy = profile_tick(lambda: decode_step(model, ps, cache, toks[-1]))
+            steady = ticks[1:]
+            return logits, toks, {"prefill_s": pre_s,
+                                  "tick_ms": sum(steady) / len(steady) * 1e3,
+                                  "tick_ms_first": ticks[0] * 1e3,
+                                  "tokens_per_s": TP_ROWS * len(steady) / sum(steady),
+                                  "tick_kernel_launches": launches, "tick_device_ms": busy}
+
+        ref_logits, toks, row["one_device"] = serve(one, params)
+        got_logits, _, row["mesh_run"] = serve(tp, pieces, forced=toks)
+        row["decode"] = lm_rule(torch.stack(got_logits), torch.stack(ref_logits), "decode")
+    out["serve"] = row
+    peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    split = "kv heads" if cfg.num_kv_heads % TP_MESH[1] == 0 else "sequence"
+    row["cache_split"] = split
+    say(f"tp serve[{cfg.name} on {TP_MESH} slots of one card, cache split by {split}]: "
+        + json.dumps(row, default=float))
+    del pieces, ref_logits, got_logits, params, tp
+    torch.cuda.empty_cache()
+
+    # ---- (b) fp32 decode on the production model width, set_decode_shard --
+    torch.cuda.reset_peak_memory_stats()
+    params = one.init(torch.Generator(device=dev).manual_seed(args.seed + 1), dev,
+                      dtype=torch.float32)
+    mesh = mesh_of(decode_mesh)
+    tp = Model(cfg, mesh=mesh)
+    pieces = tp.param_layout().shard(params)
+    toks = pipe.batch_at(1)["tokens"][:, :TP_FP32_PROMPT + TP_FP32_TICKS]
+    row = {"mesh": list(decode_mesh), "rows": TP_ROWS, "prompt": TP_FP32_PROMPT,
+           "max_len": TP_FP32_MAX_LEN, "ticks": TP_FP32_TICKS, "dtype": "float32",
+           "cache_split": "sequence" if cfg.num_kv_heads % decode_mesh[1] else "kv heads"}
+    with torch.no_grad():
+        def run(model, ps):
+            lg, cache = prefill(model, ps, {"tokens": toks[:, :TP_FP32_PROMPT]},
+                                max_len=TP_FP32_MAX_LEN)
+            logits, secs = [lg], []
+            for i in range(TP_FP32_TICKS):
+                t = toks[:, TP_FP32_PROMPT + i:TP_FP32_PROMPT + i + 1]
+                (lg, cache), s_ = sync_wall(lambda: decode_step(model, ps, cache, t))
+                logits.append(lg)
+                secs.append(s_)
+            return logits, secs
+
+        ref, ref_s = run(one, params)
+        L.set_decode_shard(mesh)
+        try:
+            got, got_s = run(tp, pieces)
+        finally:
+            L.set_decode_shard(None)
+        row["rel_err"] = [fp32_rule(g, r, f"fp32 decode {i}")
+                          for i, (g, r) in enumerate(zip(got, ref))]
+        row["one_device_tick_ms"] = [x * 1e3 for x in ref_s]
+        row["mesh_tick_ms"] = [x * 1e3 for x in got_s]
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    peaks.append(row["peak_memory_gb"])
+    out["fp32_decode"] = row
+    say(f"tp fp32 decode[{cfg.name} on {decode_mesh} slots of one card, "
+        f"set_decode_shard]: " + json.dumps(row, default=float))
+    del params, pieces, tp, ref, got
+    torch.cuda.empty_cache()
+
+    # ---- (c) olmoe on TP_MOE_MESH against each data half alone -----------
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = get_config(TP_MOE_ARCH, smoke=smoke)
+    if not smoke:
+        mcfg = mcfg.replace(num_layers=TP_MOE_LAYERS)
+    mone = Model(mcfg)
+    params = mone.init(torch.Generator(device=dev).manual_seed(args.seed + 2), dev,
+                       dtype=torch.float32)
+    mtoks = TokenPipeline(mcfg, global_batch=TP_MOE_ROWS, seq_len=TP_MOE_SEQ,
+                          seed=args.seed, device=dev).batch_at(0)["tokens"][:, :TP_MOE_SEQ]
+    half = TP_MOE_ROWS // TP_MOE_MESH[0]
+    with torch.no_grad():
+        halves = torch.cat([mone(params, {"tokens": mtoks[i:i + half]})
+                            for i in range(0, TP_MOE_ROWS, half)])
+        whole = mone(params, {"tokens": mtoks})
+        mtp = Model(mcfg, mesh=mesh_of(TP_MOE_MESH))
+        got = mtp(mtp.param_layout().shard(params), {"tokens": mtoks})
+    row = {"mesh": list(TP_MOE_MESH), "layers": mcfg.num_layers, "rows": TP_MOE_ROWS,
+           "seq": TP_MOE_SEQ, "dtype": "float32",
+           "rel_err_vs_halves": fp32_rule(got, halves, "olmoe vs each data half"),
+           "rel_err_vs_whole_batch": float(((got - whole).abs() / (1 + whole.abs())).max()),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not smoke:
+        out.setdefault("reduced", {})[TP_MOE_ARCH] = \
+            f"{TP_MOE_LAYERS} of {get_config(TP_MOE_ARCH).num_layers} layers"
+    peaks.append(row["peak_memory_gb"])
+    out["moe"] = row
+    say(f"tp moe[{mcfg.name} on {TP_MOE_MESH} slots of one card]: " + json.dumps(row))
+    del params, halves, whole, got, mtp
+    torch.cuda.empty_cache()
+
+    # ---- (d) the train step on TP_TRAIN_MESH against one device ----------
+    torch.cuda.reset_peak_memory_stats()
+    seq = 64 if smoke else TP_TRAIN_SEQ
+    opt = AdamW(lr=constant_lr(TRAIN_LR))
+    tpipe = TokenPipeline(cfg, TP_TRAIN_BATCH, seq, seed=args.seed, mode="periodic",
+                          device=dev)
+    params = one.init(torch.Generator(device=dev).manual_seed(args.seed + 3), dev)
+    host = tree_map(lambda t: t.to("cpu", copy=True), params)
+    step = make_train_step(one, opt, kv_chunk=TRAIN_KV_CHUNK)
+    state, ref_loss, ref_s = opt.init(params), [], []
+    for i in range(TP_TRAIN_STEPS):
+        (params, state, met), secs = sync_wall(lambda: step(params, state, tpipe.batch_at(i)))
+        ref_loss.append(float(met["loss"]))
+        ref_s.append(secs)
+    ref_out = params["embed"]["out"].to("cpu", copy=True)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_of(TP_TRAIN_MESH)
+    tp = Model(cfg, mesh=mesh)
+    p_lay = tp.param_layout()
+    pieces = p_lay.shard(tree_map(lambda t: t.to(dev), host))
+    del host
+    state = opt.init_slots(pieces)
+    sstep = shard_train_step(tp, opt, mesh, kv_chunk=TRAIN_KV_CHUNK)
+    losses, secs_l = [], []
+    for i in range(TP_TRAIN_STEPS):
+        (pieces, state, met), secs = sync_wall(lambda: sstep(pieces, state,
+                                                             tpipe.batch_at(i)))
+        losses.append(float(met["loss"]))
+        secs_l.append(secs)
+    mesh_peak = torch.cuda.max_memory_allocated() / 1e9
+    trained = p_lay.gather(pieces)
+    w_delta = float((trained["embed"]["out"].float().cpu() - ref_out.float()).abs().max())
+    loss_delta = max(abs(a - b) for a, b in zip(losses, ref_loss))
+    tokens = TP_TRAIN_BATCH * seq
+    row = {"mesh": list(TP_TRAIN_MESH), "seq": seq, "batch": TP_TRAIN_BATCH,
+           "steps": TP_TRAIN_STEPS, "losses": losses, "one_device_losses": ref_loss,
+           "loss_delta": loss_delta, "embed_out_delta": w_delta,
+           "step_s": sum(secs_l[1:]) / len(secs_l[1:]), "first_step_s": secs_l[0],
+           "one_device_step_s": sum(ref_s[1:]) / len(ref_s[1:]),
+           "tokens_per_s": tokens * len(secs_l[1:]) / sum(secs_l[1:]),
+           "one_device_tokens_per_s": tokens * len(ref_s[1:]) / sum(ref_s[1:]),
+           "peak_memory_gb": mesh_peak, "one_device_peak_memory_gb": one_peak}
+    say(f"tp train[{cfg.name} on {TP_TRAIN_MESH} slots of one card, seq {seq}, batch "
+        f"{TP_TRAIN_BATCH}]: " + json.dumps(row, default=float))
+    if not (loss_delta < TP_TRAIN_TOL and w_delta < TP_TRAIN_TOL):
+        raise SystemExit(f"tp: the {TP_TRAIN_MESH} train step differs from one device: "
+                         f"loss {loss_delta}, embed/out {w_delta}")
+    del state, sstep, ref_out
+    torch.cuda.empty_cache()
+    peaks += [one_peak, mesh_peak]
+
+    # ---- (e) a params checkpoint from TP_TRAIN_MESH onto TP_RESHARD_MESH --
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="smoke_tp_", dir=ROOT / "build"))
+    try:
+        _, save_s = sync_wall(lambda: save_checkpoint(ckpt, TP_TRAIN_STEPS, pieces,
+                                                      layout=p_lay))
+        ckpt_gb = sum(f.stat().st_size for f in (ckpt / f"step_{TP_TRAIN_STEPS:08d}").iterdir()) / 1e9
+        small = Model(cfg, mesh=mesh_of(TP_RESHARD_MESH))
+        (slots, at, _), restore_s = sync_wall(lambda: restore_checkpoint(
+            ckpt, small.abstract(), device=small.param_layout()))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    back = small.param_layout().gather(slots)
+    same = at == TP_TRAIN_STEPS and all(
+        torch.equal(byte_view(a), byte_view(b))
+        for a, b in zip(named_params(trained).values(), named_params(back).values()))
+    row["checkpoint"] = {"gb": ckpt_gb, "save_s": save_s, "restore_s": restore_s,
+                         "from": list(TP_TRAIN_MESH), "onto": list(TP_RESHARD_MESH),
+                         "byte_equal": same}
+    say(f"tp checkpoint: {ckpt_gb:.2f} GB of params saved from {TP_TRAIN_MESH} in "
+        f"{save_s:.2f} s, restored onto {TP_RESHARD_MESH} in {restore_s:.2f} s, "
+        f"byte-equal: {same}")
+    if not same:
+        raise SystemExit("tp: the re-placed checkpoint differs from the params saved")
+    del slots, back, pieces
+    torch.cuda.empty_cache()
+
+    # ---- (f) the production mesh's layout round trip ---------------------
+    prod = make_production_mesh(devices=[dev] * 256)
+    pm = Model(cfg, mesh=prod)
+    (prod_slots, shard_s) = sync_wall(lambda: pm.param_layout().shard(trained))
+    back, gather_s = sync_wall(lambda: pm.param_layout().gather(prod_slots))
+    same = all(torch.equal(byte_view(a), byte_view(b))
+               for a, b in zip(named_params(trained).values(), named_params(back).values()))
+    row["production_mesh"] = {"shape": prod.shape, "shard_s": shard_s, "gather_s": gather_s,
+                              "byte_equal": same}
+    say(f"tp production mesh {prod.shape} ({prod.size} slots of one card): params "
+        f"laid out in {shard_s:.2f} s, gathered in {gather_s:.2f} s, byte-equal: {same}")
+    if not same:
+        raise SystemExit("tp: the production mesh's layout does not round-trip the params")
+    out["train"] = row
+    del trained, back, prod_slots, tp, one
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out["seconds"] = time.perf_counter() - t_path
+    out["peak_memory_gb"] = max(peaks + [torch.cuda.max_memory_allocated() / 1e9])
+    say(f"tp-path launches: {launches} ({out['seconds']:.1f} s, peak device memory "
+        f"{out['peak_memory_gb']:.1f} GB)")
+    return launches
+
+
 TRAIN_ARCH = "internlm2-1.8b"
 # train_4k's sequence (utils/config SHAPES); its global batch of 256 cut to
 # 8 sequences in 4 microbatches of 2, and the run to 12 steps
@@ -2664,6 +3005,11 @@ def main(argv=None) -> int:
     lm_launches = lm_path(args, dev, report)
     peak_gb = max(peak_gb, report["lm"]["peak_memory_gb"])
 
+    # ---- the model axis, launch counts zeroed (the lm path's weights are
+    # gone; its own are freed before the training plane) ----------------------
+    tp_launches = tp_path(args, dev, report)
+    peak_gb = max(peak_gb, report["tp"]["peak_memory_gb"])
+
     # ---- the training plane, launch counts zeroed (the lm path's weights
     # are gone) ---------------------------------------------------------------
     train_launches = train_path(args, dev, report)
@@ -2686,10 +3032,15 @@ def main(argv=None) -> int:
             row["max_abs_err"] = max([row["max_abs_err"], lm["max_abs_err"]]
                                      + [lm.get("queries", lm)["max_abs_err"]])
     say(f"peak device memory of the smoke: {peak_gb:.1f} GB")
+    # bytes this process wrote to storage (the chip machine caps a call's
+    # writes at 45 GiB: the train path's checkpoints are most of them)
+    io = dict(line.split(": ") for line in Path("/proc/self/io").read_text().splitlines())
+    report["disk_write_gib"] = int(io["write_bytes"]) / 2 ** 30
+    say(f"disk writes of the smoke: {report['disk_write_gib']:.2f} GiB")
     by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches,
                "net": net_launches, "mesh": mesh_launches,
                "frontier": frontier_launches, "lm": lm_launches,
-               "train": train_launches}
+               "tp": tp_launches, "train": train_launches}
     for row in kernels:
         row["launches_by_path"] = {p_: c[row["name"]] for p_, c in by_path.items()}
 

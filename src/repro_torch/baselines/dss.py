@@ -85,7 +85,7 @@ def exact_knn_sharded(queries: torch.Tensor, data: torch.Tensor, k: int, *,
     k = min(k, n_rec)
     per = -(-n_rec // mesh.size)
     parts = []
-    for d, dev in enumerate(mesh.devices):
+    for d, dev in enumerate(mesh.slots):
         lo, hi = min(d * per, n_rec), min((d + 1) * per, n_rec)
         if hi == lo:
             continue

@@ -178,7 +178,7 @@ def refine_sharded(store: PartitionStore, queries: torch.Tensor,
     if slots is None:
         slots = shard_store(store, mesh)
     parts: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    for d, (dev, st) in enumerate(zip(mesh.devices, slots)):
+    for d, (dev, st) in enumerate(zip(mesh.slots, slots)):
         lo, hi = slot_range(store.num_partitions, mesh.size, d)
         if hi == lo:
             continue                    # an inert slot: nothing to refine

@@ -85,7 +85,7 @@ def shard_store(store: PartitionStore, mesh) -> List[PartitionStore]:
     """
     mesh = as_mesh(mesh)
     out = []
-    for d, dev in enumerate(mesh.devices):
+    for d, dev in enumerate(mesh.slots):
         lo, hi = slot_range(store.num_partitions, mesh.size, d)
         if hi == lo:
             out.append(_inert_store(store, dev))

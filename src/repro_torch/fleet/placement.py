@@ -149,7 +149,7 @@ class MeshFleetPlacement:
 
         # ---- each slot's rows on its device (views where it is home) -----
         self._slots: List[_Slot] = []
-        for d, dev in enumerate(mesh.devices):
+        for d, dev in enumerate(mesh.slots):
             rows = slice(d * per, (d + 1) * per)
             put = lambda x: x[rows].to(dev)
             owned = list(range(d * per, min((d + 1) * per, s_real)))

@@ -25,9 +25,10 @@ from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import Model
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.fault_tolerance import WatchdogPolicy, run_with_recovery
-from repro_torch.train.optimizer import AdamW, warmup_cosine
+from repro_torch.models.params import tree_map
+from repro_torch.train.optimizer import AdamW, AdamWState, warmup_cosine
 from repro_torch.train.train_step import (make_train_step, replicate,
-                                          shard_train_step)
+                                          shard_train_step, state_layout)
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 
 
@@ -43,7 +44,11 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
     ``seed``).  Returns (the parameters, the losses of the steps run).
 
     ``mesh`` (a DeviceMesh or a device list) runs the data-parallel step
-    with the state on its lead device; else the state lies on ``device``.
+    with the state on its lead device, or, for a mesh with a ``model``
+    axis (e.g. ``make_mesh((4, 2), ("data", "model"))``), the sharded step
+    with the state laid out on its slots and the batch over its other axes,
+    as the reference's ``train(mesh=...)``; else the state lies on
+    ``device``.
     ``draws`` replaces the pipeline's token draws.  ``on_event(kind,
     info)`` receives the recovery loop's events (``checkpoint``,
     ``failure``, ``restored``, ``straggler``) and one ``step`` event per
@@ -56,8 +61,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
     before its in-place update), so its retry starts from the last good
     state, as the reference's driver discards such a step's new state."""
     cfg = get_config(arch, smoke=smoke)
-    model = Model(cfg)
     mesh = as_mesh(mesh)
+    sharded = mesh is not None and "model" in mesh.axis_names
+    model = Model(cfg, mesh=mesh, batch_axes=tuple(
+        a for a in mesh.axis_names if a != "model") or ("data",)) if sharded else Model(cfg)
     dev = mesh.lead if mesh is not None else resolve_device(device)
     emit = on_event or (lambda kind, info: None)
     opt = AdamW(lr=warmup_cosine(lr, max(steps // 10, 1), steps))
@@ -65,12 +72,18 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
                          **({"draws": draws} if draws is not None else {}))
 
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
-    state = {"params": params, "opt": opt.init(params)}
     start_step = 0
+    if sharded:
+        layout = state_layout(mesh, model)
+        state = {"params": model.param_layout().shard(params)}
+        state["opt"] = opt.init_slots(state["params"])
+    else:
+        state = {"params": params, "opt": opt.init(params)}
     if mesh is not None:
         step_fn = shard_train_step(model, opt, mesh, kv_chunk=kv_chunk,
                                    microbatches=microbatches)
-        state["params"] = replicate(params, mesh)
+        if not sharded:
+            state["params"] = replicate(params, mesh)
     else:
         step_fn = make_train_step(model, opt, kv_chunk=kv_chunk,
                                   microbatches=microbatches)
@@ -78,11 +91,22 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
 
     def saved_tree():
         p = state["params"]
+        if sharded:                    # whole leaves, gathered to the host
+            return layout.gather([{"params": a, "opt": b}
+                                  for a, b in zip(p, state["opt"])], device="cpu")
         return {"params": p[0] if mesh is not None else p, "opt": state["opt"]}
 
     def restore() -> int:
         if not ckpt_dir:
             return start_step
+        if sharded:
+            like = {"params": model.abstract(),
+                    "opt": AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                                      m=tree_map(_meta_fp32, model.abstract()),
+                                      v=tree_map(_meta_fp32, model.abstract()))}
+            tree, step, _ = ckpt_mod.restore_checkpoint(ckpt_dir, like, device=layout)
+            state["params"], state["opt"] = [t["params"] for t in tree], [t["opt"] for t in tree]
+            return step
         tree, step, _ = ckpt_mod.restore_checkpoint(
             ckpt_dir, saved_tree(), device=mesh if mesh is not None else dev)
         if mesh is not None:
@@ -135,6 +159,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
     if ckpt_dir:
         save(final)
     return saved_tree()["params"], losses
+
+
+def _meta_fp32(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=torch.float32, device="meta")
 
 
 def main():

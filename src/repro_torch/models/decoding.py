@@ -12,6 +12,13 @@ Cache layouts (leading-``layers``-stacked, as in the reference):
 ``cache["len"]`` is the position decode writes at and masks validity with,
 a host int here (the reference's 0-d int32).  Caches are values:
 :func:`decode_step` returns a new cache and leaves its argument as it was.
+
+On a mesh (a ``Model`` with ``mesh``, dense GQA or MoE) the cache is a list
+with one cache per slot, each entry that slot's piece as
+:func:`repro_torch.distributed.sharding.cache_pspecs` lays it out (kv heads
+over ``model`` where they divide, else the sequence), its rows those of its
+data shard; ``prefill`` and ``decode_step`` take and return caches in that
+layout and the whole logits on the lead device.
 """
 from __future__ import annotations
 
@@ -19,9 +26,12 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (batch_axes, cache_pspecs,
+                                              cache_shardings, psum)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.models.model import Model, batch_to, cross_kv, gated_cross_block
+from repro_torch.models.model import (Model, _SlotRun, batch_to, cross_kv,
+                                      gated_cross_block)
 from repro_torch.utils.config import ModelConfig
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -29,6 +39,22 @@ from repro_torch.utils.device import DeviceLike, resolve_device
 class CacheSpec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+class MeshCache(list):
+    """A cache on a mesh: one cache of local pieces per slot, in slot
+    order, and the whole cache's ``batch`` and ``max_len`` (which fix its
+    layout, ``cache_pspecs``)."""
+
+    def __init__(self, slots, batch: int, max_len: int):
+        super().__init__(slots)
+        self.batch, self.max_len = batch, max_len
+
+    def gather(self, cfg: ModelConfig, mesh) -> Dict[str, Any]:
+        """The whole cache, on the lead device."""
+        lay = cache_shardings(cfg, mesh, self.batch, self.max_len)
+        whole = lay.gather([{k: v for k, v in c.items() if k != "len"} for c in self])
+        return dict(whole, len=self[0]["len"])
 
 
 # ----------------------------------------------------------------------
@@ -86,12 +112,81 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
-               img_len: int = 0, *, device: DeviceLike = None) -> Dict[str, Any]:
+               img_len: int = 0, *, device: DeviceLike = None, mesh=None):
+    """An empty cache on ``device``; with ``mesh``, one cache of local
+    pieces per slot (``cache_pspecs``' layout)."""
+    if mesh is not None:
+        whole = init_cache(cfg, batch, max_len, enc_len, img_len, device=mesh.lead)
+        whole.pop("len")
+        slots = cache_shardings(cfg, mesh, batch, max_len, enc_len, img_len).shard(whole)
+        return MeshCache([dict(c, len=0) for c in slots], batch, max_len)
     dev = resolve_device(device)
     return {name: 0 if name == "len" else torch.zeros(s.shape, dtype=s.dtype,
                                                       device=dev)
             for name, s in cache_shapes(cfg, batch, max_len, enc_len,
                                         img_len).items()}
+
+
+def _cache_mode(cfg: ModelConfig, mesh, batch: int, max_len: int) -> str:
+    """How ``cache_pspecs`` lays a KV cache out: "kv", "seq" or "rep"."""
+    spec = cache_pspecs(cfg, mesh, batch, max_len)["k"]
+    return "kv" if spec[3] == "model" else "seq" if spec[2] == "model" else "rep"
+
+
+def _mesh_decode_step(model: Model, params, cache, token):
+    cfg, mesh = model.cfg, model.mesh
+    token = torch.as_tensor(token)
+    run = _SlotRun(model, 1, batch_axes(mesh))
+    x, emb = model.mesh_embed(run, params, run.rows(token))
+    clen = int(cache[0]["len"])
+    mode = _cache_mode(cfg, mesh, cache.batch, cache.max_len)
+    ks, vs = [[] for _ in params], [[] for _ in params]
+    for li in range(cfg.num_layers):
+        lps = model.local_trees([p["layers"][li] for p in params],
+                                model.param_specs()["layers"], depth=1)
+        hn = [L.rmsnorm(h, lp["ln1"]) for h, lp in zip(x, lps)]
+        parts, nk, nv = L.gqa_decode_slots([lp["attn"] for lp in lps], hn,
+                                           [c["k"][li] for c in cache],
+                                           [c["v"][li] for c in cache], clen, cfg,
+                                           mesh, mode)
+        x = run.add(x, psum(parts, mesh, "model"))
+        hn = [L.rmsnorm(h, lp["ln2"]) for h, lp in zip(x, lps)]
+        if cfg.family == "moe":
+            mlp = model._moe_apply([lp["moe"] for lp in lps], hn)
+        else:
+            mlp = psum([L.swiglu_local(lp["mlp"], h, cfg.d_ff, j, run.nm)
+                        for lp, h, j in zip(lps, hn, run.js)], mesh, "model")
+        x = run.add(x, mlp)
+        for s in range(len(params)):
+            ks[s].append(nk[s])
+            vs[s].append(nv[s])
+    logits = run.gather_logits(model.mesh_logits(run, emb, x))
+    return logits, MeshCache([{"k": torch.stack(k), "v": torch.stack(v), "len": clen + 1}
+                              for k, v in zip(ks, vs)], cache.batch, cache.max_len)
+
+
+def _mesh_prefill(model: Model, params, batch, max_len: int, kv_chunk: int):
+    cfg = model.cfg
+    tokens = torch.as_tensor(batch["tokens"])
+    s = tokens.shape[1]
+    max_len = max(max_len, s)
+    run = _SlotRun(model, s, batch_axes(model.mesh))
+    x, emb = model.mesh_embed(run, params, run.rows(tokens))
+    xs = run.scatter(x)
+    pad = (lambda t: t) if max_len == s else (
+        lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, max_len - s)))
+    ks, vs = [[] for _ in params], [[] for _ in params]
+    for li in range(cfg.num_layers):
+        xs, k, v = model.mesh_layer(run, xs, [p["layers"][li] for p in params], kv_chunk,
+                                    cache_kv=True)
+        k = model.constrain_kv([pad(t) for t in k])
+        v = model.constrain_kv([pad(t) for t in v])
+        for slot in range(len(params)):
+            ks[slot].append(k[slot])
+            vs[slot].append(v[slot])
+    logits = run.gather_logits(model.mesh_logits(run, emb, run.full(xs)))
+    return logits, MeshCache([{"k": torch.stack(k), "v": torch.stack(v), "len": s}
+                              for k, v in zip(ks, vs)], tokens.shape[0], max_len)
 
 
 # ----------------------------------------------------------------------
@@ -106,6 +201,8 @@ def _ssm_decode_layer(lp, h, hs, cs, cfg):
 def decode_step(model: Model, params, cache: Dict[str, Any],
                 token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode.  token: [B, 1] int → (logits [B, 1, V], cache')."""
+    if model.mesh is not None:
+        return _mesh_decode_step(model, params, cache, token)
     cfg = model.cfg
     token = torch.as_tensor(token, device=params["embed"]["tok"].device)
     x = L.embed(params["embed"], token)
@@ -216,6 +313,8 @@ def prefill(model: Model, params, batch: Dict[str, torch.Tensor], *,
             max_len: int = 0, kv_chunk: int = 2048
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt, returning (logits [B, S, V], cache at len S)."""
+    if model.mesh is not None:
+        return _mesh_prefill(model, params, batch, max_len, kv_chunk)
     cfg = model.cfg
     batch = batch_to(batch, params["embed"]["tok"].device)
     tokens = batch["tokens"]

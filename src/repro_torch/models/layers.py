@@ -7,20 +7,39 @@ in plain PyTorch: fp32 scores and softmax, KV heads expanded per chunk,
 masking with :data:`NEG_INF` — not ``scaled_dot_product_attention``, whose
 summation order differs from the reference's.
 
-The JAX package's perf-harness switches (bf16 flash operands, the masked
-cache update, sharded flash-decoding, inner-scan unrolling) are not ported
-yet: this module runs the reference's defaults.
+On a (data, model) mesh each slot runs the ``*_local`` forms on its part
+of the ``model`` axis — its heads, its ff columns, its vocab rows — and
+returns a partial sum that the caller reduces over ``model``
+(Megatron-style tensor parallelism, which the reference gets from GSPMD).
+A slot's part of a dim that does not divide is its range of a replicated
+copy (:func:`model_part`).  :func:`set_decode_shard` is the reference's
+switch for flash-decoding over a sequence-sharded cache
+(:func:`_flash_decode_sharded`).  The other perf-harness switches (bf16
+flash operands, the masked cache update, inner-scan unrolling) are not
+ported yet: this module runs the reference's defaults.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import all_gather, pmax, psum
 from repro_torch.models.params import ParamInfo
 from repro_torch.utils.config import ModelConfig
 
 NEG_INF = -2.0e38
+
+#  DECODE_SHARD — (mesh, batch_axes) or None.  When set, decode attention of
+#  a Model on a mesh runs as explicit flash-decoding over the cache's
+#  sequence split (local partial softmax per seq shard + pmax/psum combine)
+#  wherever ``s_max % model == 0``, instead of gathering the whole cache.
+DECODE_SHARD = None
+
+
+def set_decode_shard(mesh, batch_axes=("data",)) -> None:
+    global DECODE_SHARD
+    DECODE_SHARD = (mesh, tuple(batch_axes)) if mesh is not None else None
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -359,3 +378,192 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, p["final_norm"])
     return torch.einsum("bsd,dv->bsv", x, p["out"])
+
+
+# ----------------------------------------------------------------------
+# tensor-parallel forms: one slot's part of the model axis
+# ----------------------------------------------------------------------
+def local_range(n: int, j: int, nm: int) -> Tuple[int, int]:
+    """Slot ``j`` of ``nm``'s range of ``n`` (equal parts when they divide)."""
+    return j * n // nm, (j + 1) * n // nm
+
+
+def model_part(t: torch.Tensor, dim: int, full: int, j: int, nm: int) -> torch.Tensor:
+    """Slot ``j``'s part of dim ``dim`` (``full`` long when whole): the piece
+    itself where the dim is split over ``model``, else the slot's range of
+    the replicated copy."""
+    if nm == 1 or t.shape[dim] != full:
+        return t
+    lo, hi = local_range(full, j, nm)
+    return t.narrow(dim, lo, hi - lo)
+
+
+def gqa_heads(cfg: ModelConfig, j: int, nm: int) -> Tuple[int, int, int, int]:
+    """(h0, h1, k0, k1): slot ``j``'s query heads and the kv groups they
+    read, ``h // G`` for a query head h (not the slot's index)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    h0, h1 = local_range(cfg.num_heads, j, nm)
+    return h0, h1, h0 // g, (h1 - 1) // g + 1
+
+
+def _slot_kv(t: torch.Tensor, cfg: ModelConfig, j: int, nm: int) -> torch.Tensor:
+    """The kv groups of slot ``j``'s heads, from the slot's k or v
+    ([B, S, kv_s, hd]: its kv piece, or every kv head), expanded to one
+    group per head where the heads do not take whole groups."""
+    h0, h1, k0, k1 = gqa_heads(cfg, j, nm)
+    base = 0 if t.shape[2] == cfg.num_kv_heads else local_range(cfg.num_kv_heads, j, nm)[0]
+    t = t[:, :, k0 - base:k1 - base]
+    g = cfg.num_heads // cfg.num_kv_heads
+    if h1 - h0 != (k1 - k0) * g:
+        idx = torch.tensor([(h // g) - k0 for h in range(h0, h1)], device=t.device)
+        t = t.index_select(2, idx)
+    return t
+
+
+def gqa_prefill_local(p, x: torch.Tensor, cfg: ModelConfig, j: int, nm: int, *,
+                      kv_chunk: int = 2048):
+    """Slot ``j``'s heads of causal self-attention over ``x`` [B, S, D]:
+    ``(partial, k, v)``.  ``partial`` is its share of ``out @ wo`` (sum
+    over the model slots for the layer's output); k and v (post-RoPE) are
+    the slot's kv heads: its piece of them, or all of them where ``wk`` is
+    replicated."""
+    h0, h1, _, _ = gqa_heads(cfg, j, nm)
+    wq = model_part(p["wq"], 1, cfg.num_heads, j, nm)
+    wo = model_part(p["wo"], 0, cfg.num_heads, j, nm)
+    q = torch.einsum("bsd,dqh->bsqh", x, wq)
+    k, v = gqa_project_kv(p, x)
+    if cfg.use_rope:
+        positions = torch.arange(x.shape[1], device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if h1 == h0:                              # more slots than heads
+        return torch.zeros_like(x), k, v
+    out = flash_attention(q, _slot_kv(k, cfg, j, nm), _slot_kv(v, cfg, j, nm),
+                          causal=True, kv_chunk=kv_chunk)
+    return torch.einsum("bsqh,qhd->bsd", out, wo), k, v
+
+
+def _flash_decode_sharded(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
+                         vs: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                         mesh, axis: str = "model") -> List[torch.Tensor]:
+    """Flash-decoding over a sequence split (the reference's
+    ``_flash_decode_sharded``), one entry per slot.
+
+    q: [B, 1, H, hd], every head (replicated over ``axis``); k/v: the
+    slot's sequence shard [B, S/n, KV, hd] of every kv head; valid: [B,
+    S/n].  Per shard: fp32 scores and a local max; the global max by
+    ``pmax``; ``exp(s − m_g)``; denominator and ``p·v`` by ``psum``; the
+    quotient clamped below at 1e-30.  No online-softmax rescale.  Returns
+    each slot's [B, 1, H, hd] (all heads) in q's dtype."""
+
+    b, _, h, hd = qs[0].shape
+    kv = ks[0].shape[2]
+    g = h // kv
+    scale = hd ** -0.5
+    scores, m_loc = [], []
+    for q, k, valid in zip(qs, ks, valids):
+        q_g = (q.float() * scale).reshape(b, 1, kv, g, hd)
+        sc = torch.einsum("bqkgd,bskd->bqkgs", q_g, k.float())
+        sc = torch.where(valid[:, None, None, None, :], sc, NEG_INF)
+        scores.append(sc)
+        m_loc.append(sc.amax(dim=-1))
+    m_g = pmax(m_loc, mesh, axis)
+    probs = [torch.exp(sc - m[..., None]) for sc, m in zip(scores, m_g)]
+    denom = psum([pr.sum(dim=-1) for pr in probs], mesh, axis)
+    acc = psum([torch.einsum("bqkgs,bskd->bqkgd", pr, v.float())
+                for pr, v in zip(probs, vs)], mesh, axis)
+    return [(a / torch.clamp_min(d[..., None], 1e-30)).reshape(b, 1, h, hd).to(q.dtype)
+            for a, d, q in zip(acc, denom, qs)]
+
+
+def gqa_decode_slots(ps: Sequence, xs: Sequence[torch.Tensor], cks: Sequence[torch.Tensor],
+                     cvs: Sequence[torch.Tensor], cache_len: int, cfg: ModelConfig,
+                     mesh, mode: str):
+    """One-token GQA decode on every slot of ``mesh``: ``(partials, k', v')``.
+
+    ``ps`` are the slots' attention pieces (embed dims whole), ``xs`` their
+    rows' [B, 1, D] inputs, ``cks`` / ``cvs`` their pieces of one layer's
+    cache in ``mode`` — ``"kv"`` (kv heads split over ``model``), ``"seq"``
+    (sequence split) or ``"rep"`` (whole), as ``cache_pspecs`` lays it out.
+    The new token is written by the slot that holds its position.
+    Attention: flash-decoding over the sequence split while
+    :data:`DECODE_SHARD` is set and ``s_max % model == 0`` (q gathered over
+    the model slots, every head, as in the reference's in_specs); else
+    each slot attends with its heads over the whole cache (a sequence
+    split gathered first).  ``partials`` sum over ``model`` to the layer's
+    output."""
+    nm = mesh.axis_size("model")
+    js = [mesh.coords(s).get("model", 0) for s in range(mesh.size)]
+    s_max = cks[0].shape[1] * (nm if mode == "seq" else 1)
+    pos = torch.full((1,), cache_len, dtype=torch.int32, device=xs[0].device)
+    at = min(max(int(cache_len), 0), s_max - 1)
+    qs, new_k, new_v = [], [], []
+    for p, x, ck, cv, j in zip(ps, xs, cks, cvs, js):
+        q = torch.einsum("bsd,dqh->bsqh", x, model_part(p["wq"], 1, cfg.num_heads, j, nm))
+        k_new = torch.einsum("bsd,dkh->bskh", x, p["wk"])
+        v_new = torch.einsum("bsd,dkh->bskh", x, p["wv"])
+        if cfg.use_rope:
+            q = apply_rope(q, pos.to(x.device), cfg.rope_theta)
+            k_new = apply_rope(k_new, pos.to(x.device), cfg.rope_theta)
+        if mode != "seq":
+            ck, cv = _cache_write(ck, k_new, cache_len), _cache_write(cv, v_new, cache_len)
+        elif at // ck.shape[1] == j:
+            ck = _cache_write(ck, k_new, at - j * ck.shape[1])
+            cv = _cache_write(cv, v_new, at - j * cv.shape[1])
+        qs.append(q)
+        new_k.append(ck)
+        new_v.append(cv)
+
+    if DECODE_SHARD is not None and s_max % DECODE_SHARD[0].shape["model"] == 0:
+        if DECODE_SHARD[0].shape["model"] != nm:
+            raise ValueError("set_decode_shard's mesh and the model's differ on 'model'")
+        c = s_max // nm
+        q_all = all_gather(qs, mesh, "model", 2)
+        if mode == "kv":
+            k_sh = [t.narrow(1, j * c, c) for t, j in zip(all_gather(new_k, mesh, "model", 2), js)]
+            v_sh = [t.narrow(1, j * c, c) for t, j in zip(all_gather(new_v, mesh, "model", 2), js)]
+        elif mode == "rep":
+            k_sh = [t.narrow(1, j * c, c) for t, j in zip(new_k, js)]
+            v_sh = [t.narrow(1, j * c, c) for t, j in zip(new_v, js)]
+        else:
+            k_sh, v_sh = new_k, new_v
+        valid = [(torch.arange(j * c, (j + 1) * c, device=q.device) <= cache_len)[None, :]
+                 .expand(q.shape[0], c) for q, j in zip(qs, js)]
+        outs = [o[:, :, gqa_heads(cfg, j, nm)[0]:gqa_heads(cfg, j, nm)[1]] for o, j in
+                zip(_flash_decode_sharded(q_all, k_sh, v_sh, valid, mesh), js)]
+    else:
+        k_all = all_gather(new_k, mesh, "model", 1) if mode == "seq" else new_k
+        v_all = all_gather(new_v, mesh, "model", 1) if mode == "seq" else new_v
+        outs = []
+        for q, k, v, j in zip(qs, k_all, v_all, js):
+            valid = _decode_valid(q.shape[0], s_max, cache_len, q.device)
+            outs.append(flash_attention(q, _slot_kv(k, cfg, j, nm), _slot_kv(v, cfg, j, nm),
+                                        causal=False, kv_valid=valid, kv_chunk=s_max))
+    parts = [torch.einsum("bsqh,qhd->bsd", o, model_part(p["wo"], 0, cfg.num_heads, j, nm))
+             for o, p, j in zip(outs, ps, js)]
+    return parts, new_k, new_v
+
+
+def swiglu_local(p, x: torch.Tensor, d_ff: int, j: int, nm: int) -> torch.Tensor:
+    """Slot ``j``'s ff columns of :func:`swiglu` (column-parallel in,
+    row-parallel out): its partial of the output."""
+    g = torch.einsum("bsd,df->bsf", x, model_part(p["w_gate"], 1, d_ff, j, nm))
+    u = torch.einsum("bsd,df->bsf", x, model_part(p["w_up"], 1, d_ff, j, nm))
+    return torch.einsum("bsf,fd->bsd", silu(g) * u, model_part(p["w_down"], 0, d_ff, j, nm))
+
+
+def embed_local(p, tokens: torch.Tensor, vocab: int, j: int, nm: int) -> torch.Tensor:
+    """Slot ``j``'s vocab rows of :func:`embed`: the rows of its tokens,
+    zeros for tokens outside its range (sum over the model slots)."""
+    tok = model_part(p["tok"], 0, vocab, j, nm)
+    t = tokens.long() - local_range(vocab, j, nm)[0]
+    inside = (t >= 0) & (t < tok.shape[0])
+    rows = tok[t.clamp(0, tok.shape[0] - 1)]
+    return torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+
+
+def unembed_local(p, x: torch.Tensor, vocab: int, j: int, nm: int) -> torch.Tensor:
+    """Slot ``j``'s vocab columns of :func:`unembed`'s logits."""
+    x = rmsnorm(x, p["final_norm"])
+    return torch.einsum("bsd,dv->bsv", x, model_part(p["out"], 1, vocab, j, nm))

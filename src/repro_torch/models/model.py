@@ -23,22 +23,39 @@ Conventions:
   * the modality frontends of [audio]/[vlm] archs are STUBS: the batch
     provides precomputed frame / patch embeddings.
 
-The sharding constraints of the reference's layer scan wait for the
-sharding slice: :meth:`Model.constrain_acts` and :meth:`Model.constrain_kv`
-return their input.
+``Model(cfg, mesh=mesh)`` runs on a (data, model)
+:class:`~repro_torch.launch.mesh.DeviceMesh` from one process, as the
+reference's GSPMD does on its mesh: the parameters are a list with one tree
+of local pieces per slot (:meth:`Model.param_layout`, the reference's
+``param_pspecs``); each slot computes its data shard's rows with its heads,
+ff columns and vocab rows (:mod:`repro_torch.models.layers`' ``*_local``
+forms), and the partial sums meet in the collectives of
+:mod:`repro_torch.distributed.sharding`.  An ``embed``-axis piece (FSDP,
+split over ``data``) is gathered where it is used, per layer.  While
+:data:`SEQ_SHARD_ACTS` is on (the reference's default) the layer carry is
+split over the model slots along the sequence (:meth:`Model.constrain_acts`):
+gathered before attention and the MLP, reduce-scattered after; the split
+changes memory, never values.  The dense (GQA) and MoE families are split;
+the others raise ``NotImplementedError`` on a mesh.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (Layout, all_gather, flat_specs, gather,
+                                              pmax, psum, psum_scatter, shard)
+from repro_torch.launch.mesh import as_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.params import ParamInfo, init_params
+from repro_torch.models.layers import local_range
+from repro_torch.models.params import (ParamInfo, Spec, abstract_params, init_params,
+                                       param_pspecs, tree_leaves, tree_map)
 from repro_torch.utils.config import ModelConfig
 from repro_torch.utils.device import DeviceLike
 
@@ -60,6 +77,15 @@ def _remat(fn, cfg: ModelConfig):
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+# §Perf knob of the reference: sequence-parallel sharding of the layer
+# carry over the model slots (on by default there).  Its switch
+# (``set_seq_shard_acts``) comes with the perf tools.
+SEQ_SHARD_ACTS = True
+
+# the families split over a mesh's model axis
+MESH_FAMILIES = ("dense", "moe")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -128,11 +154,24 @@ def gated_cross_block(cp, h, xk, xv, cfg: ModelConfig, kv_chunk: int):
 # ----------------------------------------------------------------------
 class Model(nn.Module):
     """One architecture of the zoo; its parameters are the caller's tree
-    (``Model.init`` or ``params_from_numpy``), passed to every call."""
+    (``Model.init`` or ``params_from_numpy``), passed to every call.
 
-    def __init__(self, cfg: ModelConfig):
+    With ``mesh`` (a (data, model) DeviceMesh) the parameters are one tree
+    of local pieces per slot (``model.param_layout().shard(params)``) and
+    the activations' rows split over ``batch_axes``, as in the
+    reference's ``Model(cfg, mesh, batch_axes)``."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None, batch_axes=("data",)):
         super().__init__()
         self.cfg = cfg
+        self.mesh = as_mesh(mesh)
+        self.batch_axes = tuple(batch_axes)
+        if self.mesh is not None and (cfg.family not in MESH_FAMILIES or cfg.use_mla):
+            kind = "dense MLA" if cfg.use_mla else cfg.family
+            raise NotImplementedError(
+                f"{cfg.name}: the {kind} family is not split over a mesh's model "
+                f"axis yet (ROADMAP queue 1, item 6c-1b: MLA, SSM, hybrid, encdec "
+                f"and vlm); run it without a mesh")
 
     # ---------------- parameter trees ----------------
     def infos(self):
@@ -178,20 +217,49 @@ class Model(nn.Module):
 
     def init(self, generator: Optional[torch.Generator] = None,
              device: DeviceLike = None, dtype: Optional[torch.dtype] = None):
+        """The whole parameter tree on ``device`` (lay it out on the mesh
+        with :meth:`param_layout`)."""
         return init_params(self.infos(), generator, device, dtype)
+
+    def abstract(self):
+        """The parameters as ``meta`` tensors: shapes only."""
+        return abstract_params(self.infos())
+
+    def param_specs(self):
+        """The reference's ``param_pspecs`` of this model on its mesh."""
+        if getattr(self, "_specs", None) is None:
+            self._specs = param_pspecs(self.infos(), self.mesh.shape)
+        return self._specs
+
+    def param_layout(self):
+        """The parameters' per-slot layout on the mesh."""
+        return Layout(self.mesh, self.param_specs())
 
     # ---------------- forward bodies ----------------
     def _moe_apply(self, p, x):
-        return MOE.moe_apply(p, x, self.cfg)
+        return MOE.moe_apply(p, x, self.cfg, mesh=self.mesh)
 
     def constrain_acts(self, x):
-        """The reference's sequence-parallel constraint (a no-op without a
-        mesh)."""
-        return x
+        """The reference's sequence-parallel constraint on the layer carry:
+        on a mesh, each slot's [B, S, D] becomes its model coordinate's
+        sequence part while :data:`SEQ_SHARD_ACTS` is on and S > 1 divides
+        over the model slots (a no-op without a mesh)."""
+        if self.mesh is None or not isinstance(x, list):
+            return x
+        return _SlotRun(self, x[0].shape[1]).scatter(x)
 
     def constrain_kv(self, x):
-        """The reference's cache-layout constraint (a no-op without a mesh)."""
-        return x
+        """The reference's cache-layout constraint on prefill-produced K/V
+        ([B, S, kv, hd] per slot: its kv piece, or every kv head): each
+        slot keeps what ``cache_pspecs`` gives it — its kv piece, its
+        sequence part, or all (a no-op without a mesh)."""
+        if self.mesh is None or not isinstance(x, list):
+            return x
+        nm = self.mesh.axis_size("model")
+        if self.cfg.num_kv_heads % nm == 0 or x[0].shape[1] % nm:
+            return x
+        size = x[0].shape[1] // nm
+        return [t.narrow(1, j * size, size) for t, j in zip(x, _SlotRun.model_coords(self))]
 
     def _backbone(self, params, x, *, kv_chunk=2048, img=None):
         """Token stream through the layers (no embed/unembed)."""
@@ -283,11 +351,83 @@ class Model(nn.Module):
             x = run(x, lp)
         return x
 
+    # ---------------- the mesh forms ----------------
+    def local_trees(self, trees: Sequence[Any], specs, depth: int = 0) -> List[Any]:
+        """Each slot's tree with its FSDP pieces (a dim split over a
+        non-model axis) gathered over that axis: the slot's part of the
+        model axis, whole elsewhere."""
+        flats = [list(tree_leaves(t)) for t in trees]
+        cols = []
+        for i, sp in enumerate(flat_specs(trees[0], specs, depth)):
+            xs = [f[i] for f in flats]
+            for dim, axis in enumerate(sp):
+                if axis is not None and axis != "model":
+                    xs = all_gather(xs, self.mesh, axis, dim)
+            cols.append(xs)
+        out = []
+        for s, tree in enumerate(trees):
+            it = iter([c[s] for c in cols])
+            out.append(tree_map(lambda _: next(it), tree))
+        return out
+
+    def mesh_layer(self, run: "_SlotRun", xs: List[torch.Tensor], lps: List[Any],
+                   kv_chunk: int, cache_kv: bool = False):
+        """One dense / moe layer on every slot: ``xs`` is the carry (each
+        slot's [B, S, D], or its sequence part) and ``lps`` the slots' layer
+        pieces.  Returns the new carry, and with ``cache_kv`` each slot's
+        post-RoPE (k, v) for the cache."""
+        cfg, nm = self.cfg, run.nm
+        lps = self.local_trees(lps, self.param_specs()["layers"], depth=1)
+        h = run.full(xs)
+        att = [L.gqa_prefill_local(lp["attn"], L.rmsnorm(hh, lp["ln1"]), cfg, j, nm,
+                                   kv_chunk=kv_chunk)
+               for lp, hh, j in zip(lps, h, run.js)]
+        xs = run.add(xs, run.reduce([a[0] for a in att]))
+        h = run.full(xs)
+        hn = [L.rmsnorm(hh, lp["ln2"]) for lp, hh in zip(lps, h)]
+        if cfg.family == "moe":
+            mlp = run.scatter(self._moe_apply([lp["moe"] for lp in lps], hn))
+        else:
+            mlp = run.reduce([L.swiglu_local(lp["mlp"], hh, cfg.d_ff, j, nm)
+                              for lp, hh, j in zip(lps, hn, run.js)])
+        xs = run.add(xs, mlp)
+        if cache_kv:
+            return xs, [a[1] for a in att], [a[2] for a in att]
+        return xs
+
+    def mesh_embed(self, run: "_SlotRun", params, tokens: List[torch.Tensor]):
+        """Each slot's [B, S, D] embeddings: its vocab rows' lookups summed
+        over the model slots."""
+        emb = self.local_trees([p["embed"] for p in params], self.param_specs()["embed"])
+        parts = [L.embed_local(e, t, self.cfg.vocab_size, j, run.nm)
+                 for e, t, j in zip(emb, tokens, run.js)]
+        return psum(parts, self.mesh, "model"), emb
+
+    def mesh_logits(self, run: "_SlotRun", emb, xs: List[torch.Tensor]):
+        """Each slot's logits over its vocab columns."""
+        return [L.unembed_local(e, x, self.cfg.vocab_size, j, run.nm)
+                for e, x, j in zip(emb, xs, run.js)]
+
+    def _mesh_forward(self, params, tokens: torch.Tensor, kv_chunk: int):
+        run = _SlotRun(self, tokens.shape[1])
+        toks = run.rows(tokens)
+        x, emb = self.mesh_embed(run, params, toks)
+        xs = run.scatter(x)
+        body = _remat(lambda c, lps: self.mesh_layer(run, c, lps, kv_chunk), self.cfg)
+        for li in range(self.cfg.num_layers):
+            xs = body(xs, [p["layers"][li] for p in params])
+        return run, self.mesh_logits(run, emb, run.full(xs))
+
     # ---------------- public entry points ----------------
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
                 kv_chunk: int = 2048) -> torch.Tensor:
-        """Logits [B, S, V] for a full sequence (train / eval / datastore)."""
+        """Logits [B, S, V] for a full sequence (train / eval / datastore);
+        on a mesh the whole logits, gathered to the lead device."""
         cfg = self.cfg
+        if self.mesh is not None:
+            tokens = torch.as_tensor(batch["tokens"])
+            run, local = self._mesh_forward(params, tokens, kv_chunk)
+            return run.gather_logits(local)
         batch = batch_to(batch, params["embed"]["tok"].device)
         x = L.embed(params["embed"], batch["tokens"])
         if cfg.family == "encdec":
@@ -302,7 +442,16 @@ class Model(nn.Module):
 
     def train_loss(self, params, batch: Dict[str, torch.Tensor], *,
                    kv_chunk: int = 2048) -> torch.Tensor:
-        """Next-token CE (fp32 scalar).  ``batch["tokens"]`` is [B, S+1]."""
+        """Next-token CE (fp32 scalar).  ``batch["tokens"]`` is [B, S+1].
+
+        On a mesh the CE is vocab-parallel: each slot's max, sum of
+        exponentials and gold logit over its vocab columns, combined by
+        ``pmax`` / ``psum`` over the model slots; the loss is the mean of
+        the data shards' means, on the lead device."""
+        if self.mesh is not None:
+            tokens = torch.as_tensor(batch["tokens"])
+            run, local = self._mesh_forward(params, tokens[:, :-1], kv_chunk)
+            return run.vocab_parallel_ce(local, run.rows(tokens[:, 1:]))
         tokens = torch.as_tensor(batch["tokens"], device=params["embed"]["tok"].device)
         logits = self.forward(params, {**batch, "tokens": tokens[:, :-1]},
                               kv_chunk=kv_chunk)
@@ -312,3 +461,85 @@ class Model(nn.Module):
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """The batch's arrays as tensors on the parameters' device."""
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+class _SlotRun:
+    """One mesh call's slot bookkeeping: each slot's model coordinate, the
+    rows of its data shard, and the sequence split of the layer carry
+    (``SEQ_SHARD_ACTS``, for a sequence of ``seq`` tokens)."""
+
+    def __init__(self, model: Model, seq: int, batch_axes=None):
+        self.mesh = model.mesh
+        self.nm = self.mesh.axis_size("model")
+        self.js = _SlotRun.model_coords(model)
+        self.batch_axes = model.batch_axes if batch_axes is None else tuple(batch_axes)
+        self.split = SEQ_SHARD_ACTS and self.nm > 1 and seq > 1 and seq % self.nm == 0
+        self.vocab = model.cfg.vocab_size
+        self.last_rows = Spec(None)
+
+    @staticmethod
+    def model_coords(model: Model) -> List[int]:
+        return [model.mesh.coords(s).get("model", 0) for s in range(model.mesh.size)]
+
+    def row_spec(self, rows: int) -> Spec:
+        n = int(np.prod([self.mesh.axis_size(a) for a in self.batch_axes]))
+        return Spec(self.batch_axes if rows % n == 0 else None)
+
+    def rows(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Each slot's rows of a batch tensor (all rows where they do not
+        split over the batch axes)."""
+        self.last_rows = self.row_spec(t.shape[0])
+        return shard(torch.as_tensor(t), self.mesh, self.last_rows)
+
+    def full(self, xs):
+        return all_gather(xs, self.mesh, "model", 1) if self.split else xs
+
+    def reduce(self, parts):
+        if self.split:
+            return psum_scatter(parts, self.mesh, "model", 1)
+        return psum(parts, self.mesh, "model")
+
+    def scatter(self, xs):
+        """Each slot's sequence part of a [B, S, D] that every model slot
+        holds alike."""
+        if not self.split:
+            return xs
+        size = xs[0].shape[1] // self.nm
+        return [x.narrow(1, j * size, size) for x, j in zip(xs, self.js)]
+
+    def add(self, xs, ys):
+        """``x + y`` per slot, once for slots that share both operands."""
+        memo: Dict[Any, torch.Tensor] = {}
+        out = []
+        for x, y in zip(xs, ys):
+            key = (id(x), id(y))
+            if key not in memo:
+                memo[key] = x + y
+            out.append(memo[key])
+        return out
+
+    def gather_logits(self, local: List[torch.Tensor]) -> torch.Tensor:
+        """The whole [B, S, V], on the lead device, from each slot's vocab
+        columns of its rows (laid out by the last :meth:`rows`)."""
+        full = all_gather(local, self.mesh, "model", -1)
+        return gather(full, self.mesh, self.last_rows)
+
+    def vocab_parallel_ce(self, local: List[torch.Tensor],
+                          labels: List[torch.Tensor]) -> torch.Tensor:
+        """Mean next-token CE from each slot's vocab columns of its rows'
+        logits (``labels``: its rows' labels)."""
+        mesh = self.mesh
+        lg = [x.float() for x in local]
+        m = pmax([x.amax(dim=-1).detach() for x in lg], mesh, "model")
+        sumexp = psum([torch.exp(x - mm[..., None]).sum(dim=-1) for x, mm in zip(lg, m)],
+                      mesh, "model")
+        golds = []
+        for x, lab, j in zip(lg, labels, self.js):
+            t = lab.long() - local_range(self.vocab, j, self.nm)[0]
+            inside = (t >= 0) & (t < x.shape[-1])
+            g = torch.gather(x, -1, t.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+            golds.append(torch.where(inside, g, torch.zeros((), device=g.device)))
+        gold = psum(golds, mesh, "model")
+        losses = [torch.mean(mm + torch.log(se) - g) for mm, se, g in zip(m, sumexp, gold)]
+        picks = [s for s, j in enumerate(self.js) if j == 0]
+        return sum(losses[s].to(mesh.lead) for s in picks) / len(picks)

@@ -12,8 +12,12 @@ The JAX package's dispatch (``repro.models.moe``), kept exactly:
   * the experts' outputs scatter-add back per token (accumulated in fp32,
     rounded once to the activations' dtype).
 
-:func:`moe_apply` is the mesh-free form; the shard_map form comes with the
-sharding slice.
+Experts are **tensor-parallel over the ff dim** on a mesh, as in the
+reference: each model slot holds F/model columns of every expert (and of
+the shared experts), runs :func:`moe_local` on its data shard's tokens, and
+the slots' partial outputs sum over ``model``.  The router is replicated,
+so every model slot of a data shard routes alike; the capacity counts only
+that shard's tokens.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.layers import silu
+from repro_torch.distributed.sharding import psum
+from repro_torch.models.layers import model_part, silu
 from repro_torch.models.params import ParamInfo
 from repro_torch.utils.config import ModelConfig
 
@@ -105,8 +110,41 @@ def moe_local(p, x: torch.Tensor, cfg: ModelConfig,
     return out.to(x.dtype)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
-              capacity_factor: float = 1.25) -> torch.Tensor:
-    """MoE over x: [B, S, D] (all tokens of the batch share the capacity)."""
-    b, s, d = x.shape
-    return moe_local(p, x.reshape(-1, d), cfg, capacity_factor).reshape(b, s, d)
+def moe_slot_params(p, cfg: ModelConfig, j: int, nm: int):
+    """Slot ``j``'s ff columns of every expert's weights (the reference's
+    shard_map in_specs: ``w_gate`` / ``w_up`` / ``s_gate`` / ``s_up`` split
+    on ff, ``w_down`` / ``s_down`` on their ff rows, the router whole)."""
+    f, fs = cfg.d_ff, cfg.shared_expert_d_ff
+    out = {"router": p["router"],
+           "w_gate": model_part(p["w_gate"], 2, f, j, nm),
+           "w_up": model_part(p["w_up"], 2, f, j, nm),
+           "w_down": model_part(p["w_down"], 1, f, j, nm)}
+    if cfg.num_shared_experts:
+        out.update({"s_gate": model_part(p["s_gate"], 1, fs, j, nm),
+                    "s_up": model_part(p["s_up"], 1, fs, j, nm),
+                    "s_down": model_part(p["s_down"], 0, fs, j, nm)})
+    return out
+
+
+def moe_apply(p, x, cfg: ModelConfig, *, mesh=None, model_axis: str = "model",
+              capacity_factor: float = 1.25):
+    """MoE over x: [B, S, D] (all tokens of the batch share the capacity).
+
+    With a mesh, ``p`` and ``x`` are lists with one entry per slot — its
+    moe parameters (embed dims whole) and its data shard's rows, laid out
+    by the caller over the batch axes — and each
+    slot runs :func:`moe_local` on its ff columns; the partial outputs sum
+    over ``model_axis``.  Returns the per-slot outputs."""
+    if mesh is None:
+        b, s, d = x.shape
+        return moe_local(p, x.reshape(-1, d), cfg, capacity_factor).reshape(b, s, d)
+
+    nm = mesh.axis_size(model_axis)
+    parts = []
+    for slot, (p_l, x_l) in enumerate(zip(p, x)):
+        j = mesh.coords(slot).get(model_axis, 0)
+        bl, sl, d = x_l.shape
+        y = moe_local(moe_slot_params(p_l, cfg, j, nm), x_l.reshape(-1, d), cfg,
+                      capacity_factor)
+        parts.append(y.reshape(bl, sl, d))
+    return psum(parts, mesh, model_axis)

@@ -12,9 +12,20 @@ that single tree
 The port's parameters unstack every leading ``layers`` dim into a list, so
 that ``params["layers"][3]["attn"]["wq"]`` — dotted, ``layers.3.attn.wq``
 (:func:`named_params`) — is the reference's
-``params["layers"]["attn"]["wq"][3]``.  The logical axis names are kept for
-the sharding slice (``embed``, ``vocab``, ``heads``, ``kv_heads``, ``ff``,
-``experts``, ``layers`` …); nothing reads them yet.
+``params["layers"]["attn"]["wq"][3]``.
+
+The logical axis names (``embed``, ``vocab``, ``heads``, ``kv_heads``,
+``ff``, ``experts``, ``layers`` …) map to mesh axes through
+:data:`DEFAULT_RULES`, the reference's MaxText-style rules:
+  embed    — d_model rows/cols    → FSDP-sharded over the data axis
+  vocab    — embedding/output     → model axis
+  heads    — attention heads      → model axis
+  kv_heads — KV heads             → model axis iff divisible, else replicated
+  ff       — MLP hidden           → model axis
+  experts, layers, state, hd, conv, lora, groups → replicated
+:func:`param_pspecs` gives one :class:`Spec` per leaf of the stacked info
+tree; :func:`abstract_params` gives ``meta``-device tensors (nothing is
+allocated) for shape-only work.
 """
 from __future__ import annotations
 
@@ -165,3 +176,66 @@ def count_params(tree) -> int:
     of tensors."""
     return int(sum(np.prod(x.shape) if _is_info(x) else x.numel()
                    for x in tree_leaves(tree)))
+
+
+def abstract_params(tree):
+    """The parameters of a ParamInfo tree as ``meta``-device tensors in the
+    port's layout: shapes and dtypes, nothing allocated."""
+    return _unstack(tree, lambda info, idx, _: torch.empty(
+        info.shape[len(idx):], dtype=info.dtype, device="meta"))
+
+
+class Spec(tuple):
+    """A partition spec: one entry per dim — a mesh-axis name, a tuple of
+    names (the dim split over their product, the first major), or None
+    (replicated).  The port's counterpart of ``jax.sharding.PartitionSpec``;
+    ``tuple(spec)`` compares equal to ``tuple(PartitionSpec(...))``."""
+
+    def __new__(cls, *entries):
+        # a 1-tuple names one axis, as PartitionSpec normalises it
+        return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1
+                                     else e for e in entries))
+
+    def __repr__(self) -> str:
+        return "Spec(" + ", ".join(repr(e) for e in self) + ")"
+
+
+# logical axis name → mesh axis (or None).  The data axis doubles as the
+# FSDP axis (weights sharded over it, gathered per layer where used).
+DEFAULT_RULES: Dict[str, Optional[str]] = {
+    "embed": "data",
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",       # dropped at spec time if not divisible
+    "ff": "model",
+    "experts": None,
+    "layers": None,
+    "state": None,
+    "hd": None,
+    "conv": None,
+    "lora": None,
+    "groups": None,
+}
+
+
+def param_pspecs(tree, mesh_axis_sizes: Dict[str, int],
+                 rules: Optional[Dict[str, Optional[str]]] = None):
+    """A :class:`Spec` per leaf of the stacked ParamInfo ``tree``; an axis
+    that does not divide its dim is replicated."""
+    rules = dict(DEFAULT_RULES if rules is None else rules)
+
+    def one(info: ParamInfo):
+        spec = []
+        for dim, name in zip(info.shape, info.logical):
+            axis = rules.get(name) if name else None
+            if axis is not None and axis in mesh_axis_sizes \
+                    and dim % mesh_axis_sizes[axis] == 0:
+                spec.append(axis)
+            else:
+                spec.append(None)
+        return Spec(*spec)
+
+    def walk(node):
+        return one(node) if _is_info(node) else {k: walk(v) for k, v in node.items()}
+
+    return walk(tree)

@@ -19,7 +19,10 @@ Layout (one directory per step):
     manifest, as ``ml_dtypes`` writes it, and read back through an int16
     view;
   * **re-placeable**: restore rebuilds the global arrays from the files and
-    puts them on any device, or on every slot of a mesh.
+    puts them on any device, on every slot of a mesh, or laid out on any
+    (data, model) mesh by a :class:`~repro_torch.distributed.sharding.Layout`
+    (the elastic re-place); a save from a layout gathers whole leaves, so its
+    files are those of a one-device save.
 The ``treedef`` field is this package's own description of the tree; the
 reference's restore never reads it.
 """
@@ -35,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Layout
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.train.train_step import replicate
 
@@ -113,8 +117,13 @@ def _host_array(shape, leaves: List[torch.Tensor]) -> Tuple[np.ndarray, str, str
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, extra: Optional[Dict] = None,
-                    process_index: int = 0) -> Path:
-    """Write one atomic checkpoint.  Returns the final directory path."""
+                    process_index: int = 0, layout: Optional[Layout] = None) -> Path:
+    """Write one atomic checkpoint.  Returns the final directory path.
+
+    With ``layout``, ``tree`` is a list of per-slot trees laid out by it;
+    the whole leaves are gathered to the host first."""
+    if layout is not None:
+        tree = layout.gather(tree, device="cpu")
     base = Path(ckpt_dir)
     base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
@@ -177,17 +186,24 @@ def _rebuild(node, pieces: Dict[str, Any], key: str = ""):
 
 
 def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
-                       device: Union[None, str, torch.device, DeviceMesh] = None,
+                       device: Union[None, str, torch.device, DeviceMesh, Layout] = None,
                        process_index: int = 0) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``tree_like`` (the port's layout).
 
     Leaves keep the file's dtype and go to ``device``; with ``device=None``
     each goes to the device of ``tree_like``'s leaf.  A
     :class:`~repro_torch.launch.mesh.DeviceMesh` gives one tree per slot
-    (:func:`~repro_torch.train.train_step.replicate`): the elastic re-place,
-    whatever the writer's layout was.  A missing leaf raises ``KeyError``,
-    a shape that differs from ``tree_like``'s ``ValueError``.
+    (:func:`~repro_torch.train.train_step.replicate`), a
+    :class:`~repro_torch.distributed.sharding.Layout` one tree of local
+    pieces per slot of its mesh: the elastic re-place, whatever the
+    writer's layout was.  ``tree_like`` holds whole leaves (``meta``
+    tensors will do).  A missing leaf raises ``KeyError``, a shape that
+    differs from ``tree_like``'s ``ValueError``.
     """
+    if isinstance(device, Layout):
+        tree, step, extra = restore_checkpoint(ckpt_dir, tree_like, step=step,
+                                               device="cpu", process_index=process_index)
+        return device.shard(tree), step, extra
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Tuple
 
 import torch
 
@@ -96,18 +96,82 @@ class AdamW:
 
         # one leaf at a time: the temporaries are one leaf's
         for g, (p, rank), m, v in zip(gs, ps, ms, vs):
-            dev = p.device
-            g32 = g.float() * scale.to(dev)
-            m.mul_(self.b1).add_((1 - self.b1) * g32)
-            v.mul_(self.b2).add_((1 - self.b2) * g32 * g32)
-            mhat = m / bc1.to(dev)
-            vhat = v / bc2.to(dev)
-            delta = mhat / (torch.sqrt(vhat) + self.eps)
-            if rank >= 2:                        # decoupled WD on matrices
-                delta = delta + self.weight_decay * p.float()
-            p.copy_(p.float() - lr.to(dev) * delta)
+            self._leaf(g, p, rank, m, v, scale, bc1, bc2, lr)
         return params, AdamWState(step=step, m=state.m, v=state.v), {
             "grad_norm": gnorm, "lr": lr}
+
+    def _leaf(self, g, p, rank, m, v, scale, bc1, bc2, lr) -> None:
+        dev = p.device
+        g32 = g.float() * scale.to(dev)
+        m.mul_(self.b1).add_((1 - self.b1) * g32)
+        v.mul_(self.b2).add_((1 - self.b2) * g32 * g32)
+        mhat = m / bc1.to(dev)
+        vhat = v / bc2.to(dev)
+        delta = mhat / (torch.sqrt(vhat) + self.eps)
+        if rank >= 2:                        # decoupled WD on matrices
+            delta = delta + self.weight_decay * p.float()
+        p.copy_(p.float() - lr.to(dev) * delta)
+
+    def init_slots(self, params: List[Any]) -> List[AdamWState]:
+        """The state of per-slot parameter trees (a mesh's layout): each
+        slot's moments in its parameters' layout, shared where the slots
+        share a parameter tensor."""
+        zeros: Dict[Tuple[str, int], torch.Tensor] = {}
+        steps: Dict[torch.device, torch.Tensor] = {}
+
+        def z(p, kind):
+            if (kind, id(p)) not in zeros:
+                zeros[kind, id(p)] = torch.zeros(p.shape, dtype=torch.float32,
+                                                 device=p.device)
+            return zeros[kind, id(p)]
+
+        out = []
+        for tree in params:
+            dev = _leaves(tree)[0].device
+            if dev not in steps:
+                steps[dev] = torch.zeros((), dtype=torch.int32, device=dev)
+            out.append(AdamWState(step=steps[dev], m=tree_map(lambda p: z(p, "m"), tree),
+                                  v=tree_map(lambda p: z(p, "v"), tree)))
+        return out
+
+    @torch.no_grad()
+    def update_slots(self, grads: List[List[torch.Tensor]], states: List[AdamWState],
+                     params: List[Any], pieces: List[List[List[int]]]
+                     ) -> Tuple[List[Any], List[AdamWState], Dict[str, torch.Tensor]]:
+        """One step over per-slot trees, in place.
+
+        ``grads[s]`` is slot ``s``'s list of reduced grads in leaf order,
+        ``pieces[i]`` the groups of slots that hold one piece of leaf ``i``
+        (``repro_torch.distributed.sharding.holders``).  The global grad
+        norm counts every element once — one holder per piece — and each
+        parameter tensor is updated once, however many slots share it."""
+        lead = _leaves(params[0])[0].device
+        step = states[0].step.to(lead) + 1
+        gnorm = torch.zeros((), dtype=torch.float32, device=lead)
+        for i, groups in enumerate(pieces):
+            for group in groups:
+                g32 = grads[group[0]][i].float()
+                gnorm = gnorm + torch.sum(g32 * g32).to(lead)
+        gnorm = torch.sqrt(gnorm)
+        scale = torch.clamp_max(self.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
+        bc1 = 1 - self.b1 ** step.float()
+        bc2 = 1 - self.b2 ** step.float()
+        lr = self.lr(step)
+        done = set()
+        for s, tree in enumerate(params):
+            for g, (p, rank), m, v in zip(grads[s], leaves_with_rank(tree),
+                                          _leaves(states[s].m), _leaves(states[s].v)):
+                if id(p) not in done:
+                    done.add(id(p))
+                    self._leaf(g, p, rank, m, v, scale, bc1, bc2, lr)
+        steps = {}
+        new = []
+        for st in states:
+            dev = st.step.device
+            if dev not in steps:
+                steps[dev] = step.to(dev)
+            new.append(AdamWState(step=steps[dev], m=st.m, v=st.v))
+        return params, new, {"grad_norm": gnorm, "lr": lr}
 
 
 def warmup_cosine(peak: float, warmup: int, total: int,

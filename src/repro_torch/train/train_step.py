@@ -14,9 +14,16 @@ gather to the lead device and average, one update runs there, and the
 parameters go back to every slot.  The parameters are a list with one tree
 per slot (:func:`replicate`); slots on one device share one tree.
 
-The reference's ``NamedSharding`` constructions (``make_state_shardings``,
-``make_batch_shardings``, ``batch_pspec``) need a model axis and are not
-ported.
+With a model on a (data, model) mesh (``Model(cfg, mesh=mesh)``),
+:func:`shard_train_step` runs the reference's sharding contract instead:
+each slot holds its pieces of the parameters and moments
+(:func:`make_state_shardings`), runs forward and backward on its data rows
+and its model pieces, the grads of every piece sum over the slots that hold
+it (over ``data``, and over ``model`` where a piece is replicated there),
+and AdamW updates each piece once.  :func:`batch_pspec`,
+:func:`make_batch_shardings` and :func:`make_state_shardings` return the
+port's per-slot layouts (:class:`~repro_torch.distributed.sharding.Layout`)
+where the reference returns ``NamedSharding`` trees.
 """
 from __future__ import annotations
 
@@ -24,10 +31,12 @@ import contextlib
 import math
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Layout, flat_specs, holders
 from repro_torch.launch.mesh import DeviceMesh
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import Spec, param_pspecs, tree_leaves, tree_map
 from repro_torch.train.optimizer import AdamW, AdamWState
 
 
@@ -41,10 +50,10 @@ def replicate(tree, mesh: DeviceMesh) -> List[Any]:
     that device) and later slots on the same device share it."""
     by_dev: Dict[torch.device, Any] = {}
     src = _leaves(tree)[0].device
-    for dev in mesh.devices:
+    for dev in mesh.slots:
         if dev not in by_dev:
             by_dev[dev] = tree if dev == src else tree_map(lambda x: x.to(dev), tree)
-    return [by_dev[d] for d in mesh.devices]
+    return [by_dev[d] for d in mesh.slots]
 
 
 def value_and_grad(model, params, batch: Dict[str, torch.Tensor], *,
@@ -113,9 +122,91 @@ def skipped(opt: AdamW, state: AdamWState, loss: torch.Tensor) -> Dict[str, torc
             "lr": opt.lr(state.step + 1)}
 
 
+def batch_pspec(mesh: DeviceMesh, extra_dims: int = 1) -> Spec:
+    """Batch arrays shard their leading dim over every non-model axis."""
+    axes = tuple(a for a in mesh.axis_names if a != "model")
+    return Spec(axes, *([None] * extra_dims))
+
+
+def make_batch_shardings(mesh: DeviceMesh, batch_tree) -> Layout:
+    """The batch's per-slot layout: rows over the non-model axes where they
+    divide, else replicated (e.g. a global batch of 1)."""
+    n_batch = int(np.prod([mesh.shape[a] for a in mesh.axis_names if a != "model"]))
+    return Layout(mesh, {k: batch_pspec(mesh, x.ndim - 1)
+                         if x.ndim and x.shape[0] % n_batch == 0 else Spec()
+                         for k, x in batch_tree.items()})
+
+
+def make_state_shardings(mesh: DeviceMesh, model) -> Tuple[Layout, Layout]:
+    """Per-slot layouts of (params, opt_state) from the logical-axis rules."""
+    specs = param_pspecs(model.infos(), mesh.shape)
+    return Layout(mesh, specs), Layout(mesh, AdamWState(step=Spec(), m=specs, v=specs))
+
+
+def state_layout(mesh: DeviceMesh, model) -> Layout:
+    """The layout of per-slot ``{"params", "opt"}`` trees (a checkpoint's)."""
+    p_lay, o_lay = make_state_shardings(mesh, model)
+    return Layout(mesh, {"params": p_lay.specs, "opt": o_lay.specs})
+
+
+def _mesh_train_step(model, opt: AdamW, kv_chunk: int, microbatches: int) -> Callable:
+    mesh = model.mesh
+
+    def train_step(params: Sequence[Any], opt_state: Sequence[AdamWState], batch):
+        live = [tree_map(lambda p: p.detach().requires_grad_(), t) for t in params]
+        leaves = [_leaves(t) for t in live]
+        flat = [x for slot in leaves for x in slot]
+        rows = next(iter(batch.values())).shape[0]
+        if rows % microbatches:
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{microbatches} microbatches")
+        n = rows // microbatches
+        loss = torch.zeros((), dtype=torch.float32, device=mesh.lead)
+        acc = [[torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in slot]
+               for slot in leaves]
+        for i in range(microbatches):
+            mb = {k: torch.as_tensor(v)[i * n:(i + 1) * n] for k, v in batch.items()}
+            part = model.train_loss(live, mb, kv_chunk=kv_chunk)
+            grads = iter(torch.autograd.grad(part, flat, allow_unused=True))
+            for slot in acc:
+                for a in slot:
+                    g = next(grads)
+                    if g is not None:
+                        a.add_(g)
+            loss = loss + part.detach()
+            del grads
+        loss = loss / microbatches
+        if not math.isfinite(float(loss)):
+            return params, opt_state, skipped(opt, opt_state[0], loss)
+        # each piece's grad: the sum over the slots that hold it, in slot order
+        pieces = [holders(mesh, sp) for sp in flat_specs(params[0], model.param_specs())]
+        for i, groups in enumerate(pieces):
+            for group in groups:
+                dev0 = acc[group[0]][i].device
+                total = acc[group[0]][i]
+                for s in group[1:]:
+                    total = total + acc[s][i].to(dev0)
+                total = total / microbatches
+                for s in group:
+                    acc[s][i] = total.to(acc[s][i].device)
+        del live, leaves, flat
+        params, opt_state, stats = opt.update_slots(acc, list(opt_state), list(params), pieces)
+        return params, opt_state, {"loss": loss, **stats}
+    return train_step
+
+
 def shard_train_step(model, opt: AdamW, mesh: DeviceMesh, *,
                      kv_chunk: int = 2048, microbatches: int = 1) -> Callable:
-    """The data-parallel step over ``mesh``:
+    """The step over ``mesh``.
+
+    With a model on ``mesh`` (``Model(cfg, mesh=mesh)``, a (data, model)
+    mesh): (params per slot, opt_state per slot, batch) → (params',
+    opt_state', metrics), every tree in the slot's layout
+    (:func:`make_state_shardings`; the state from
+    :meth:`AdamW.init_slots`).  The loss is the mean over the data shards'
+    means; each slot's grads come from one backward through every slot,
+    and a piece's grad is the sum over the slots that hold it.  With a
+    model without a mesh, the data-parallel step over a 1-D ``mesh``:
     (params per slot, opt_state, batch) → (params per slot, opt_state',
     metrics).
 
@@ -124,6 +215,10 @@ def shard_train_step(model, opt: AdamW, mesh: DeviceMesh, *,
     its ``microbatches`` of them; the loss and the grads are the means over
     slots, which for equal slots is the reference's mean over the global
     batch.  Every slot is launched before the first gather."""
+    if getattr(model, "mesh", None) is not None:
+        if model.mesh is not mesh:
+            raise ValueError("shard_train_step: the model lies on another mesh")
+        return _mesh_train_step(model, opt, kv_chunk, microbatches)
     d = mesh.size
 
     def train_step(params: Sequence[Any], opt_state: AdamWState, batch):
@@ -132,7 +227,7 @@ def shard_train_step(model, opt: AdamW, mesh: DeviceMesh, *,
             raise ValueError(f"batch of {rows} rows does not split over {d} slots")
         n = rows // d
         per_slot = []
-        for s, dev in enumerate(mesh.devices):
+        for s, dev in enumerate(mesh.slots):
             with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                 b = {k: torch.as_tensor(v)[s * n:(s + 1) * n].to(dev)
                      for k, v in batch.items()}
