@@ -3032,11 +3032,6 @@ def main(argv=None) -> int:
             row["max_abs_err"] = max([row["max_abs_err"], lm["max_abs_err"]]
                                      + [lm.get("queries", lm)["max_abs_err"]])
     say(f"peak device memory of the smoke: {peak_gb:.1f} GB")
-    # bytes this process wrote to storage (the chip machine caps a call's
-    # writes at 45 GiB: the train path's checkpoints are most of them)
-    io = dict(line.split(": ") for line in Path("/proc/self/io").read_text().splitlines())
-    report["disk_write_gib"] = int(io["write_bytes"]) / 2 ** 30
-    say(f"disk writes of the smoke: {report['disk_write_gib']:.2f} GiB")
     by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches,
                "net": net_launches, "mesh": mesh_launches,
                "frontier": frontier_launches, "lm": lm_launches,
