@@ -133,15 +133,20 @@ path and read just after it:
    launches and device ms beside the one-device run's; (b) fp32 at full
    width on ``TP_DECODE_MESH`` = (1, 16), the production model width (kv =
    8 does not divide: the cache splits by sequence), a 255-token prefill
-   and 2 ticks under ``set_decode_shard`` against one device, every logit
-   within 1e-3·(1+|logit|); (c) olmoe-1b-7b at full width in fp32, 4 of its
-   16 layers, 4 × 64 tokens on (2, 2) against each data half run alone on
-   one device (the MoE capacity counts one data shard's tokens), within
-   1e-3·(1+|logit|); (d) the train step at full width on (2, 4), sequence
-   1,024, batch 8, 3 steps (AdamW, lr 3e-4) against the one-device step,
-   which runs first and is kept on the host: every loss and ``embed/out``
-   within 5e-2 (the reference's bound), step s, tokens/s and peak memory
-   beside the one-device step's; (e) its bf16 params (3.8 GB) saved from
+   into a 272-slot cache and 2 ticks under ``set_decode_shard`` against
+   one device, every logit within 1e-3·(1+|logit|); (c) olmoe-1b-7b at
+   full width in fp32, 4 of its 16 layers, 4 × 64 tokens on (2, 2) against
+   each data half run alone on one device (the MoE capacity counts one
+   data shard's tokens), within 1e-3·(1+|logit|); (d) the train step at
+   full width on (2, 4): first one fp32 step of 2 × 1,024 tokens against
+   the one-device step, AdamW's first moment — after one step (1 - b1)·clip
+   times each leaf's reduced grad — within 1e-4 of each leaf's largest
+   entry (a piece's grad zeroed, swapped or summed into the wrong slot
+   fails it); then bf16, sequence 1,024, batch 8, 3 steps (AdamW, lr 3e-4)
+   against the one-device step, which runs first and is kept on the host:
+   every loss and ``embed/out`` within 5e-2 (the reference's bound), step
+   s, tokens/s and peak memory beside the one-device step's; (e) its bf16
+   params (3.8 GB) saved from
    (2, 4) with ``save_checkpoint(layout=)`` under ``build/`` and restored
    onto (2, 2) byte-equal, the directory removed; (f)
    ``make_production_mesh(devices=[card] * 256)`` lays the trained params
@@ -1549,11 +1554,9 @@ def lm_prompt_lengths(gen, n, lo=32, hi=256):
 
 def decode_vs_forward(model, params, batch, label, atol=None):
     """``prefill`` of all but the last token and one ``decode_step`` with
-    it, against ``forward`` at that position.  bf16 parameters
-    (``atol=None``): the greedy token equal wherever the forward's
-    top-1/top-2 gap exceeds 0.3 (twice the reference test's rtol = atol =
-    0.15), max |Δ| reported; fp32 parameters: every logit within
-    ``atol·(1+|forward|)``.  Logits must be finite.  Raises; returns the
+    it, against ``forward`` at that position, by :func:`logits_rule`: bf16
+    parameters (``atol=None``) by the greedy rule, fp32 ones also with
+    every logit within ``atol·(1+|forward|)``.  Raises; returns the
     numbers."""
     import torch
     from repro_torch.models import decode_step, prefill
@@ -1563,22 +1566,36 @@ def decode_vs_forward(model, params, batch, label, atol=None):
     _, cache = prefill(model, params, {**batch, "tokens": tokens[:, :s - 1]},
                        max_len=s)
     got = decode_step(model, params, cache, tokens[:, s - 1:])[0][:, 0].float()
-    if not (bool(torch.isfinite(full).all()) and bool(torch.isfinite(got).all())):
-        raise SystemExit(f"lm [{label}]: non-finite logits")
+    return {"rows": int(full.shape[0]), "prompt": s,
+            **logits_rule(got, full, f"lm [{label}] decode vs forward", atol)}
+
+
+def logits_rule(got, full, label, atol=None):
+    """The lm rules on logits [..., V] against ``full``: finite; the greedy
+    token equal wherever ``full``'s top-1/top-2 gap exceeds 0.3 (twice the
+    reference test's rtol = atol = 0.15), max |Δ| reported; with ``atol``
+    (fp32), every logit within ``atol·(1+|full|)``.  Raises naming
+    ``label``; returns the numbers."""
+    import torch
+    got = got.float().reshape(-1, got.shape[-1])
+    full = full.float().reshape(-1, full.shape[-1])
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(full).all())):
+        raise SystemExit(f"{label}: non-finite logits")
     delta = (got - full).abs()
-    top2 = torch.sort(full, dim=-1).values[:, -2:]
-    gap = top2[:, 1] - top2[:, 0]
+    top2 = torch.topk(full, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
     clear = gap > 0.3
-    out = {"rows": int(full.shape[0]), "prompt": s, "max_abs_delta": float(delta.max()),
+    same = got.argmax(-1) == full.argmax(-1)
+    out = {"positions": int(full.shape[0]), "max_abs_delta": float(delta.max()),
            "max_abs_logit": float(full.abs().max()),
+           "rel_err": float((delta / (1 + full.abs())).max()),
            "beyond_0.15": int((delta > 0.15 + 0.15 * full.abs()).sum()),
-           "max_gap": float(gap.max()), "rows_gap_over_0.3": int(clear.sum()),
-           "argmax_equal": int((got.argmax(-1) == full.argmax(-1)).sum())}
-    if atol is not None and bool((delta > atol * (1 + full.abs())).any()):
-        raise SystemExit(f"lm [{label}]: decode vs forward |Δ| {out['max_abs_delta']} "
-                         f"beyond {atol}·(1+|logit|)")
-    if bool((got.argmax(-1) != full.argmax(-1))[clear].any()):
-        raise SystemExit(f"lm [{label}]: greedy token differs where the gap exceeds 0.3")
+           "max_gap": float(gap.max()), "gap_over_0.3": int(clear.sum()),
+           "argmax_equal": int(same.sum())}
+    if atol is not None and not out["rel_err"] <= atol:
+        raise SystemExit(f"{label}: |Δ|/(1+|logit|) {out['rel_err']} beyond {atol}")
+    if bool((~same & clear).any()):
+        raise SystemExit(f"{label}: the greedy token differs where the gap exceeds 0.3")
     return out
 
 
@@ -1933,38 +1950,14 @@ TP_DECODE_MESH = (1, 16)      # the production model width: kv = 8 does not divi
 TP_MOE_MESH = (2, 2)
 TP_TRAIN_MESH, TP_RESHARD_MESH = (2, 4), (2, 2)
 TP_ROWS, TP_PROMPT, TP_TICKS, TP_MAX_LEN = 8, 256, 16, 512
-TP_FP32_PROMPT, TP_FP32_MAX_LEN, TP_FP32_TICKS = 255, 256, 2
+# 255 splits into the prefill's 3 chunks; 272 = 17 · 16 slots holds both ticks
+TP_FP32_PROMPT, TP_FP32_MAX_LEN, TP_FP32_TICKS = 255, 272, 2
 TP_MOE_LAYERS, TP_MOE_ROWS, TP_MOE_SEQ = 4, 4, 64     # of olmoe's 16 layers
 TP_TRAIN_SEQ, TP_TRAIN_BATCH, TP_TRAIN_STEPS = 1024, 8, 3
 TP_FP32_TOL = 1e-3            # fp32 logits: within 1e-3·(1+|logit|)
 TP_TRAIN_TOL = 5e-2           # the reference's sharded-step bound
-
-
-def lm_rule(got, full, label):
-    """The lm path's bf16 rule on logits [..., V]: the greedy token equal
-    wherever ``full``'s top-1/top-2 gap exceeds 0.3; finite; max |Δ|
-    reported.  Raises; returns the numbers."""
-    import torch
-    got, full = got.float().reshape(-1, got.shape[-1]), full.float().reshape(-1, full.shape[-1])
-    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(full).all())):
-        raise SystemExit(f"tp [{label}]: non-finite logits")
-    top2 = torch.topk(full, 2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 0.3
-    same = got.argmax(-1) == full.argmax(-1)
-    if bool((~same & clear).any()):
-        raise SystemExit(f"tp [{label}]: the greedy token differs where the gap exceeds 0.3")
-    return {"positions": int(full.shape[0]), "max_abs_delta": float((got - full).abs().max()),
-            "max_abs_logit": float(full.abs().max()), "gap_over_0.3": int(clear.sum()),
-            "argmax_equal": int(same.sum())}
-
-
-def fp32_rule(got, full, label):
-    """Every logit within ``TP_FP32_TOL``·(1+|logit|).  Raises."""
-    import torch
-    rel = float(((got.float() - full.float()).abs() / (1 + full.float().abs())).max())
-    if not (rel <= TP_FP32_TOL and bool(torch.isfinite(got).all())):
-        raise SystemExit(f"tp [{label}]: |Δ|/(1+|logit|) {rel} beyond {TP_FP32_TOL}")
-    return rel
+TP_GRAD_ROWS = 2              # the fp32 first-moment step: one row per data shard
+TP_GRAD_TOL = 1e-4            # fp32 first moment: |Δ| within 1e-4 of a leaf's largest
 
 
 def profile_tick(fn):
@@ -1977,6 +1970,55 @@ def profile_tick(fn):
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3
+
+
+def first_moment_check(args, one, tp, opt, tpipe, p_lay, o_lay, dev):
+    """One fp32 step of ``TP_GRAD_ROWS`` rows on one device, then on
+    ``tp``'s mesh from the same parameters.  After one step AdamW's first
+    moment is (1 - b1)·clip·g, each leaf's reduced grad: every leaf must be
+    within ``TP_GRAD_TOL`` of its largest entry, which a piece's grad
+    zeroed, swapped or summed into the wrong slot fails.  Raises; returns
+    the numbers."""
+    import torch
+    from repro_torch.models.params import named_params
+    from repro_torch.train import make_train_step, shard_train_step
+    batch = {k: v[:TP_GRAD_ROWS] for k, v in tpipe.batch_at(0).items()}
+    init = lambda: one.init(torch.Generator(device=dev).manual_seed(args.seed + 4), dev,
+                            dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    params = init()
+    step = make_train_step(one, opt, kv_chunk=TRAIN_KV_CHUNK)
+    (_, state, m1), one_s = sync_wall(lambda: step(params, opt.init(params), batch))
+    ref_m, one_peak = state.m, torch.cuda.max_memory_allocated() / 1e9
+    del params, state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pieces = p_lay.shard(init())
+    step = shard_train_step(tp, opt, tp.mesh, kv_chunk=TRAIN_KV_CHUNK)
+    (pieces, states, m2), mesh_s = sync_wall(lambda: step(pieces, opt.init_slots(pieces),
+                                                          batch))
+    del pieces
+    got_m = o_lay.gather(states).m
+    del states
+    rel = {n: float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+           for (n, a), b in zip(named_params(ref_m).items(), named_params(got_m).values())}
+    worst = max(rel, key=rel.get)
+    row = {"mesh": list(tp.mesh.shape.values()), "rows": TP_GRAD_ROWS,
+           "seq": batch["tokens"].shape[1] - 1, "dtype": "float32", "leaves": len(rel),
+           "first_moment_rel_err": rel[worst], "worst_leaf": worst,
+           "loss_rel_err": abs(float(m2["loss"]) - float(m1["loss"])) / abs(float(m1["loss"])),
+           "grad_norm_rel_err": abs(float(m2["grad_norm"]) - float(m1["grad_norm"]))
+           / float(m1["grad_norm"]), "one_device_step_s": one_s, "mesh_step_s": mesh_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "one_device_peak_memory_gb": one_peak}
+    del ref_m, got_m
+    torch.cuda.empty_cache()
+    say(f"tp grads[fp32, one step of {TP_GRAD_ROWS} rows on {tuple(tp.mesh.shape.values())} "
+        f"slots of one card vs one device]: " + json.dumps(row))
+    if not rel[worst] <= TP_GRAD_TOL:
+        raise SystemExit(f"tp: the first moment of {worst} differs from one device by "
+                         f"{rel[worst]} of its largest entry (bound {TP_GRAD_TOL})")
+    return row
 
 
 def tp_path(args, dev, report):
@@ -1998,7 +2040,7 @@ def tp_path(args, dev, report):
     from repro_torch.models import Model, decode_step, prefill
     from repro_torch.models import layers as L
     from repro_torch.models.params import named_params, tree_map
-    from repro_torch.train import (AdamW, constant_lr, make_train_step,
+    from repro_torch.train import (AdamW, constant_lr, make_state_shardings, make_train_step,
                                    restore_checkpoint, save_checkpoint, shard_train_step)
 
     smoke = args.lm_smoke
@@ -2028,8 +2070,8 @@ def tp_path(args, dev, report):
            "ticks": TP_TICKS, "max_len": TP_MAX_LEN}
     with torch.no_grad():
         full = one(params, {"tokens": prompt}, kv_chunk=PREFILL_CHUNK)
-        row["forward"] = lm_rule(tp(pieces, {"tokens": prompt}, kv_chunk=PREFILL_CHUNK),
-                                 full, "forward")
+        row["forward"] = logits_rule(tp(pieces, {"tokens": prompt}, kv_chunk=PREFILL_CHUNK),
+                                     full, "tp [forward]")
         del full
 
         def serve(model, ps, forced=None):
@@ -2052,7 +2094,8 @@ def tp_path(args, dev, report):
 
         ref_logits, toks, row["one_device"] = serve(one, params)
         got_logits, _, row["mesh_run"] = serve(tp, pieces, forced=toks)
-        row["decode"] = lm_rule(torch.stack(got_logits), torch.stack(ref_logits), "decode")
+        row["decode"] = logits_rule(torch.stack(got_logits), torch.stack(ref_logits),
+                                    "tp [decode]")
     out["serve"] = row
     peaks.append(torch.cuda.max_memory_allocated() / 1e9)
     split = "kv heads" if cfg.num_kv_heads % TP_MESH[1] == 0 else "sequence"
@@ -2070,6 +2113,9 @@ def tp_path(args, dev, report):
     tp = Model(cfg, mesh=mesh)
     pieces = tp.param_layout().shard(params)
     toks = pipe.batch_at(1)["tokens"][:, :TP_FP32_PROMPT + TP_FP32_TICKS]
+    # every tick writes a slot of its own: none clamps onto the last
+    assert TP_FP32_PROMPT + TP_FP32_TICKS <= TP_FP32_MAX_LEN
+    assert TP_FP32_MAX_LEN % decode_mesh[1] == 0          # set_decode_shard's split
     row = {"mesh": list(decode_mesh), "rows": TP_ROWS, "prompt": TP_FP32_PROMPT,
            "max_len": TP_FP32_MAX_LEN, "ticks": TP_FP32_TICKS, "dtype": "float32",
            "cache_split": "sequence" if cfg.num_kv_heads % decode_mesh[1] else "kv heads"}
@@ -2091,7 +2137,7 @@ def tp_path(args, dev, report):
             got, got_s = run(tp, pieces)
         finally:
             L.set_decode_shard(None)
-        row["rel_err"] = [fp32_rule(g, r, f"fp32 decode {i}")
+        row["rel_err"] = [logits_rule(g, r, f"tp [fp32 decode {i}]", TP_FP32_TOL)["rel_err"]
                           for i, (g, r) in enumerate(zip(got, ref))]
         row["one_device_tick_ms"] = [x * 1e3 for x in ref_s]
         row["mesh_tick_ms"] = [x * 1e3 for x in got_s]
@@ -2122,7 +2168,8 @@ def tp_path(args, dev, report):
         got = mtp(mtp.param_layout().shard(params), {"tokens": mtoks})
     row = {"mesh": list(TP_MOE_MESH), "layers": mcfg.num_layers, "rows": TP_MOE_ROWS,
            "seq": TP_MOE_SEQ, "dtype": "float32",
-           "rel_err_vs_halves": fp32_rule(got, halves, "olmoe vs each data half"),
+           "rel_err_vs_halves": logits_rule(got, halves, "tp [olmoe vs each data half]",
+                                            TP_FP32_TOL)["rel_err"],
            "rel_err_vs_whole_batch": float(((got - whole).abs() / (1 + whole.abs())).max()),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     if not smoke:
@@ -2140,6 +2187,12 @@ def tp_path(args, dev, report):
     opt = AdamW(lr=constant_lr(TRAIN_LR))
     tpipe = TokenPipeline(cfg, TP_TRAIN_BATCH, seq, seed=args.seed, mode="periodic",
                           device=dev)
+    mesh = mesh_of(TP_TRAIN_MESH)
+    tp = Model(cfg, mesh=mesh)
+    p_lay, o_lay = make_state_shardings(mesh, tp)
+    out["grads"] = grads = first_moment_check(args, one, tp, opt, tpipe, p_lay, o_lay, dev)
+    peaks += [grads["one_device_peak_memory_gb"], grads["peak_memory_gb"]]
+    torch.cuda.reset_peak_memory_stats()
     params = one.init(torch.Generator(device=dev).manual_seed(args.seed + 3), dev)
     host = tree_map(lambda t: t.to("cpu", copy=True), params)
     step = make_train_step(one, opt, kv_chunk=TRAIN_KV_CHUNK)
@@ -2153,9 +2206,6 @@ def tp_path(args, dev, report):
     del params, state, step
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    mesh = mesh_of(TP_TRAIN_MESH)
-    tp = Model(cfg, mesh=mesh)
-    p_lay = tp.param_layout()
     pieces = p_lay.shard(tree_map(lambda t: t.to(dev), host))
     del host
     state = opt.init_slots(pieces)

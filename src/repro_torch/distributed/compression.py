@@ -13,7 +13,10 @@ slot's tensor is quantised on its own device, the dequantised payloads
 gather to the lead device and sum there in slot order.  Rounding is half to
 even and the scale divides in IEEE fp32, as in the reference.  A stacked
 leaf of the reference's is a list of per-layer tensors in the port's
-parameter trees; its entries share one scale (:func:`stacked_groups`).
+parameter trees: given the info tree the parameters were made from
+(``Model.infos()``), the entries of each such list share one scale
+(:func:`~repro_torch.models.params.stacked_leaves`).  Without it, every
+tensor is a leaf of its own, as ``jax.tree_util`` takes a tree.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import Any, List, Sequence, Tuple
 import torch
 
 from repro_torch.launch.mesh import DeviceMesh
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import stacked_leaves, tree_leaves, tree_map
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -62,23 +65,12 @@ def ef_allreduce_leaf(grads: Sequence[torch.Tensor], errors: Sequence[torch.Tens
     return total / float(mesh.size), new_errors
 
 
-def stacked_groups(tree) -> List[List[torch.Tensor]]:
-    """The leaves of ``tree`` grouped as the reference's stacked leaves.
-
-    A list whose entries share one structure and shapes is the port's
-    unstacked ``layers`` dim (:mod:`repro_torch.models.params`): leaf k of
-    every entry forms one group, in layer order, as ``[L, ...]`` is one
-    leaf in the reference.  Any other list is a sequence of leaves, as in
-    ``jax.tree_util``.  Each group is a list of tensors."""
-    if isinstance(tree, dict):
-        return [g for v in tree.values() for g in stacked_groups(v)]
-    if isinstance(tree, (list, tuple)):
-        parts = [stacked_groups(v) for v in tree]
-        shapes = [[[tuple(x.shape) for x in g] for g in p] for p in parts]
-        if parts and all(s == shapes[0] for s in shapes):
-            return [[x for p in parts for x in p[k]] for k in range(len(parts[0]))]
-        return [g for p in parts for g in p]
-    return [[tree]]
+def _groups(tree, infos=None) -> List[List[torch.Tensor]]:
+    """The leaves of ``tree`` grouped under their int8 scales: by the
+    stacked leaves of ``infos`` where given, else one tensor a group."""
+    if infos is not None:
+        return stacked_leaves(tree, infos)
+    return [[x] for x in tree_leaves(tree)]
 
 
 def _ef_group(grads: Sequence[List[torch.Tensor]], errors: Sequence[List[torch.Tensor]],
@@ -103,18 +95,19 @@ def _ef_group(grads: Sequence[List[torch.Tensor]], errors: Sequence[List[torch.T
     return reduced, new_errors
 
 
-def ef_allreduce_tree(grads: Sequence[Any], errors: Sequence[Any], mesh: DeviceMesh
-                      ) -> Tuple[Any, List[Any]]:
+def ef_allreduce_tree(grads: Sequence[Any], errors: Sequence[Any], mesh: DeviceMesh,
+                      infos: Any = None) -> Tuple[Any, List[Any]]:
     """Tree version: ``grads[s]`` and ``errors[s]`` are slot ``s``'s trees,
-    in the port's layout.  Each stacked leaf (:func:`stacked_groups`) is
-    quantised under one scale, as the reference quantises its ``[L, ...]``
-    leaf.  Returns (the reduced tree on the lead device, each slot's new
-    error tree), both in the port's layout."""
+    in the port's layout.  With ``infos``, the stacked info tree the
+    parameters were made from, each stacked leaf is quantised under one
+    scale, as the reference quantises its ``[L, ...]`` leaf; without it,
+    each tensor under its own.  Returns (the reduced tree on the lead
+    device, each slot's new error tree), both in the port's layout."""
     if not len(grads) == len(errors) == mesh.size:
         raise ValueError(f"{len(grads)} grads and {len(errors)} errors for "
                          f"{mesh.size} slots")
-    groups_g = [stacked_groups(g) for g in grads]
-    groups_e = [stacked_groups(e) for e in errors]
+    groups_g = [_groups(g, infos) for g in grads]
+    groups_e = [_groups(e, infos) for e in errors]
     out_g, out_e = [], [[] for _ in grads]
     for k in range(len(groups_g[0])):
         rg, ne = _ef_group([g[k] for g in groups_g], [e[k] for e in groups_e], mesh)
@@ -123,7 +116,7 @@ def ef_allreduce_tree(grads: Sequence[Any], errors: Sequence[Any], mesh: DeviceM
             out_e[s].append(x)
 
     def rebuild(groups, like):
-        order = {id(x): (k, i) for k, g in enumerate(stacked_groups(like))
+        order = {id(x): (k, i) for k, g in enumerate(_groups(like, infos))
                  for i, x in enumerate(g)}
         return tree_map(lambda x: groups[order[id(x)][0]][order[id(x)][1]], like)
 
@@ -136,10 +129,11 @@ def init_error_tree(params: Any) -> Any:
                                           device=p.device), params)
 
 
-def compression_ratio(tree: Any) -> float:
+def compression_ratio(tree: Any, infos: Any = None) -> float:
     """Wire-bytes ratio of int8+scale vs fp32 for a gradient tree: one
-    4-byte scale per stacked leaf (:func:`stacked_groups`)."""
-    groups = stacked_groups(tree)
+    4-byte scale per stacked leaf of ``infos`` where given, else per
+    tensor (as :func:`ef_allreduce_tree` groups them)."""
+    groups = _groups(tree, infos)
     total_f32 = sum(x.numel() * 4 for g in groups for x in g)
     total_q = sum(sum(x.numel() for x in g) + 4 for g in groups)
     return total_q / total_f32

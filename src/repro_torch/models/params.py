@@ -30,7 +30,7 @@ allocated) for shape-only work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +86,26 @@ def _unstack(tree, leaf: Callable, other=None, idx: Tuple[int, ...] = ()):
         return [_unstack(tree, leaf, other, idx + (i,)) for i in range(n)]
     return {k: _unstack(v, leaf, None if other is None else other[k], idx)
             for k, v in tree.items()}
+
+
+def stacked_leaves(tree, infos) -> List[List[Any]]:
+    """The leaves of ``tree``, a tree in the port's layout made from the
+    stacked info tree ``infos`` (:func:`_unstack`), grouped as the
+    reference's leaves: the entries of each list that a ``layers`` dim
+    became give one group per leaf, in the stacked C order; every other
+    leaf is a group of one.  Groups follow ``infos``' dict order."""
+    def walk(node, info, depth):
+        if _is_info(info):
+            return [[node]]
+        n = _stack_size(info, depth)
+        if n is None:
+            return [g for k, v in info.items() for g in walk(node[k], v, depth)]
+        if not isinstance(node, (list, tuple)) or len(node) != n:
+            raise ValueError(f"expected a list of {n} layers, got {type(node).__name__}")
+        parts = [walk(x, info, depth + 1) for x in node]
+        return [[x for p in parts for x in p[k]] for k in range(len(parts[0]))]
+
+    return walk(tree, infos, 0)
 
 
 def init_params(tree, generator: Optional[torch.Generator] = None,

@@ -214,7 +214,13 @@ def shard_train_step(model, opt: AdamW, mesh: DeviceMesh, *,
     device.  Slot ``s`` takes rows ``[s·B/D, (s+1)·B/D)`` and accumulates
     its ``microbatches`` of them; the loss and the grads are the means over
     slots, which for equal slots is the reference's mean over the global
-    batch.  Every slot is launched before the first gather."""
+    batch.  Every slot is launched before the first gather.
+
+    Two paths remain because only the dense and MoE families have mesh
+    forms yet: a model of another family cannot take a mesh, so its
+    data-parallel training needs the 1-D path.  Once every family is split,
+    a 1-D mesh becomes a (data, model) mesh with one model slot and the 1-D
+    path goes (ROADMAP, queue 1)."""
     if getattr(model, "mesh", None) is not None:
         if model.mesh is not mesh:
             raise ValueError("shard_train_step: the model lies on another mesh")

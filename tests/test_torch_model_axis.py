@@ -14,13 +14,19 @@ sharded train step and the elastic checkpoint re-place.
   unsplit one; olmoe on (2, 2) against the one-device run of each data
   half (the MoE capacity counts one data shard's tokens).
 * Training: the port's (4, 2) step against its one-device step (loss
-  1e-5 relative, weights 5e-2, the reference's bound); a (4, 2) save
-  byte-equal in its files to a one-device save and restored onto (2, 2)
-  byte-equal; ``train(mesh=(2, 2))`` against one device.
+  and grad norm 1e-5 relative; AdamW's first moment, which after one step
+  is the reduced grad times (1 - b1)·clip, within ``GRAD_RTOL`` of each
+  leaf's largest entry, so that a piece's grad summed into the wrong slot,
+  swapped or zeroed fails; weights 5e-2, the reference's bound); a
+  non-finite loss leaves the (2, 2) slots' parameters and moments
+  byte-equal; a (4, 2) save byte-equal in its files to a one-device save
+  and restored onto (2, 2) byte-equal; ``train(mesh=(2, 2))`` against one
+  device.
 * One subprocess on 8 host XLA devices holds the port to the reference's
-  own sharded runs: the (4, 2) train step (loss and ``embed/out`` within
-  5e-2, the reference's bound), olmoe's shard_map MoE forward on (2, 2)
-  and internlm2's decode under ``set_decode_shard`` on (1, 4)
+  own sharded runs: the (4, 2) train step in fp32 (the first moment
+  within ``GRAD_RTOL`` leaf by leaf; loss and ``embed/out`` within 5e-2,
+  the reference's bound), olmoe's shard_map MoE forward on (2, 2) and
+  internlm2's decode under ``set_decode_shard`` on (1, 4)
   (``1e-4·(1+|x|)``).
 """
 import json
@@ -35,7 +41,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
-from test_torch_models import both_params  # noqa: E402
+from test_torch_models import both_params, rel_err  # noqa: E402
 
 from repro.configs import ARCHS  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
@@ -50,7 +56,8 @@ from repro_torch.launch import make_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import Model as TModel, decode_step, prefill  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.models.params import named_params, param_pspecs, tree_map  # noqa: E402
+from repro_torch.models.params import (named_params, param_pspecs, tree_leaves,  # noqa: E402
+                                       tree_map)
 from repro_torch.train import (AdamW, batch_pspec, constant_lr,  # noqa: E402
                                make_batch_shardings, make_state_shardings,
                                make_train_step, restore_checkpoint, save_checkpoint,
@@ -60,6 +67,7 @@ REPO = Path(__file__).resolve().parents[1]
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 SERVE_TOL = 1e-4
+GRAD_RTOL = 1e-4              # fp32 grads: |Δ| within this share of a leaf's largest
 UNSPLIT = ("minicpm3-4b", "mamba2-780m", "zamba2-2.7b", "whisper-large-v3",
            "llama-3.2-vision-90b")
 
@@ -90,6 +98,14 @@ def spec_items(tree, path=""):
 
 def cpu_mesh(shape):
     return make_mesh(shape, ("data", "model"), ["cpu"] * int(np.prod(shape)))
+
+
+def worst_leaf(ref, got):
+    """(largest per-leaf ``rel_err``, its name) of two trees in the port's
+    layout."""
+    ref, got = named_params(ref), named_params(got)
+    assert ref.keys() == got.keys()
+    return max((rel_err(ref[n].float().numpy(), got[n]), n) for n in ref)
 
 
 def close(got, ref, tol=SERVE_TOL):
@@ -260,7 +276,7 @@ def test_sharded_step_matches_one_device():
     batch = {"tokens": torch.from_numpy(np.random.default_rng(6).integers(0, 256, (8, 33)))}
     opt = AdamW(lr=constant_lr(1e-3))
     one = tree_map(torch.clone, params)
-    one, _, m1 = make_train_step(tm, opt, kv_chunk=32)(one, opt.init(one), batch)
+    one, s1, m1 = make_train_step(tm, opt, kv_chunk=32)(one, opt.init(one), batch)
     mesh = cpu_mesh((4, 2))
     mm = TModel(tm.cfg, mesh=mesh)
     p_lay, o_lay = make_state_shardings(mesh, mm)
@@ -272,7 +288,32 @@ def test_sharded_step_matches_one_device():
     w = max(float((a.float() - b.float()).abs().max())
             for a, b in zip(named_params(one).values(), named_params(got).values()))
     assert w < 5e-2, w
-    assert int(o_lay.gather(os_).step) == 1
+    state = o_lay.gather(os_)
+    assert int(state.step) == 1
+    # after one step m = (1 - b1)·clip·g: each leaf's reduced grad
+    worst = worst_leaf(s1.m, state.m)
+    assert worst[0] <= GRAD_RTOL, worst
+
+
+def test_non_finite_loss_leaves_the_mesh_state(monkeypatch):
+    """A NaN loss on (2, 2) slots applies no update: every slot's
+    parameters, moments and step stay byte-equal."""
+    tm = TModel(t_get_config("internlm2-1.8b", smoke=True), mesh=cpu_mesh((2, 2)))
+    opt = AdamW(lr=constant_lr(1e-3))
+    batch = {"tokens": torch.randint(0, 256, (4, 17), generator=torch.Generator().manual_seed(0))}
+    p_lay, o_lay = make_state_shardings(tm.mesh, tm)
+    ps = p_lay.shard(tm.init(torch.Generator().manual_seed(0), "cpu", torch.float32))
+    step = shard_train_step(tm, opt, tm.mesh, kv_chunk=16)
+    ps, os_, _ = step(ps, opt.init_slots(ps), batch)      # moments no longer zero
+    snap = lambda *t: [x.clone().view(-1).view(torch.uint8) for x in tree_leaves(list(t))]
+    before = snap(ps, os_)
+    real = TModel.train_loss
+    monkeypatch.setattr(TModel, "train_loss",
+                        lambda self, *a, **kw: real(self, *a, **kw) * float("nan"))
+    p2, s2, met = step(ps, os_, batch)
+    assert not np.isfinite(float(met["loss"])) and int(o_lay.gather(s2).step) == 1
+    after = snap(p2, s2)
+    assert len(after) == len(before) and all(map(torch.equal, before, after))
 
 
 def test_checkpoint_reshards_to_smaller_mesh(tmp_path):
@@ -323,6 +364,7 @@ from repro_torch.configs import get_config as tcfg
 from repro_torch.launch import make_mesh
 from repro_torch.models import Model as TModel, decode_step, params_from_numpy, prefill
 from repro_torch.models import layers as TL
+from repro_torch.models import named_params
 from repro_torch.train import AdamW, constant_lr, make_state_shardings, shard_train_step
 
 assert jax.device_count() == 8
@@ -332,24 +374,29 @@ as_np = lambda t: jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), t)
 cpu = lambda shape: make_mesh(shape, ("data", "model"), ["cpu"] * int(np.prod(shape)))
 fp32 = lambda t: jax.tree_util.tree_map(lambda x: x.astype(jnp.float32), t)
 
-# the reference's (4, 2) sharded train step, bf16 parameters
+# the reference's (4, 2) sharded train step, fp32 parameters
 cfg = jcfg("internlm2-1.8b", smoke=True)
 batch = TokenPipeline(cfg, 8, 32, seed=1).batch_at(0)
-params = JModel(cfg).init(jax.random.PRNGKey(0))
+params = fp32(JModel(cfg).init(jax.random.PRNGKey(0)))
 jmesh = j_make_mesh((4, 2), ("data", "model"))
 jopt = JAdamW(lr=j_const(1e-3))
 shapes = jax.tree_util.tree_map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batch)
 fn, (psh, osh, bsh) = j_shard_step(JModel(cfg, mesh=jmesh, batch_axes=("data",)), jopt,
                                    jmesh, shapes, kv_chunk=32, donate=False)
-jp, _, jmet = fn(jax.device_put(params, psh), jax.device_put(jopt.init(params), osh),
-                 jax.device_put(batch, bsh))
+jp, jst, jmet = fn(jax.device_put(params, psh), jax.device_put(jopt.init(params), osh),
+                   jax.device_put(batch, bsh))
 tm = TModel(tcfg("internlm2-1.8b", smoke=True), mesh=cpu((4, 2)))
-p_lay, _ = make_state_shardings(tm.mesh, tm)
+p_lay, o_lay = make_state_shardings(tm.mesh, tm)
 opt = AdamW(lr=constant_lr(1e-3))
-ps = p_lay.shard(params_from_numpy(as_np(params), tm.infos(), device="cpu"))
-ps, _, met = shard_train_step(tm, opt, tm.mesh, kv_chunk=32)(
+port = lambda t: params_from_numpy(as_np(t), tm.infos(), device="cpu", dtype=torch.float32)
+ps = p_lay.shard(port(params))
+ps, os_, met = shard_train_step(tm, opt, tm.mesh, kv_chunk=32)(
     ps, opt.init_slots(ps), {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
+ref_m, got_m = named_params(port(jst.m)), named_params(o_lay.gather(os_).m)
+m_rel = {n: float(np.abs(ref_m[n].numpy() - got_m[n].numpy()).max()
+                  / max(float(np.abs(ref_m[n].numpy()).max()), 1e-30)) for n in ref_m}
 out["step"] = {"loss_ref": float(jmet["loss"]), "loss": float(met["loss"]),
+               "m_rel": max(m_rel.values()), "m_worst": max(m_rel, key=m_rel.get),
                "w_delta": float(np.abs(np.asarray(jp["embed"]["out"], np.float32)
                                        - p_lay.gather(ps)["embed"]["out"].float().numpy()).max())}
 
@@ -406,6 +453,7 @@ def test_port_matches_the_reference_sharded_runs():
                          timeout=400, env=env)
     assert res.returncode == 0, f"STDOUT:\n{res.stdout}\nSTDERR:\n{res.stderr}"
     out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["step"]["m_rel"] <= GRAD_RTOL, out
     assert abs(out["step"]["loss"] - out["step"]["loss_ref"]) < 5e-2, out
     assert out["step"]["w_delta"] < 5e-2, out
     assert out["olmoe"] <= SERVE_TOL, out

@@ -15,7 +15,10 @@ and ``launch/train.py``.
 * Compression: ``quantize_int8`` / ``dequantize_int8`` bit-equal to the
   reference; ``ef_allreduce_tree`` over 8 CPU slots within the reference's
   0.05 of the true mean; error feedback keeps the running sum within one
-  quantisation step, as the reference's test holds it.
+  quantisation step, as the reference's test holds it; a model tree in the
+  port's layout, given its info tree, takes one scale per stacked leaf as
+  the reference's stacked tree does, and a list of leaves that is no
+  layers stack one scale per leaf.
 * ``train()``: both packages resume their own copy of one reference
   checkpoint for 3 steps with the same token draws; losses within
   ``RESUME_RTOL`` = 1e-2 relative (bf16 parameters; measured 1.6e-5).  The
@@ -322,7 +325,7 @@ def test_ef_allreduce_one_scale_per_stacked_leaf():
     port = [params_from_numpy(t, tm.infos(), device="cpu", dtype=torch.float32)
             for t in slots]
     red, err = t_comp.ef_allreduce_tree(port, [t_comp.init_error_tree(g) for g in port],
-                                        make_mesh(2, ["cpu"] * 2))
+                                        make_mesh(2, ["cpu"] * 2), infos=tm.infos())
     stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *slots)
     j_red, j_err = jax.vmap(lambda g, e: j_comp.ef_allreduce_tree(g, e, "pod"),
                             axis_name="pod")(stacked, j_comp.init_error_tree(stacked))
@@ -336,6 +339,31 @@ def test_ef_allreduce_one_scale_per_stacked_leaf():
         want_e = as_port(jax.tree_util.tree_map(lambda x: x[s], j_err))
         for got, ref in zip(named_params(err[s]).values(), named_params(want_e).values()):
             np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6, atol=0)
+    assert t_comp.compression_ratio(port[0], tm.infos()) == \
+        j_comp.compression_ratio(slots[0])
+
+
+def test_ef_allreduce_list_of_leaves_matches_reference():
+    """A jax-style list of equal-shaped leaves that is no layers stack,
+    1000x apart, over two slots: with no info tree each leaf keeps its own
+    scale, as ``jax.tree_util`` takes the list in the reference."""
+    rng = np.random.default_rng(8)
+    slots = [{"w": [rng.standard_normal((4, 8)).astype(np.float32) * 1000.0 ** i
+                    for i in range(2)], "b": rng.standard_normal(8).astype(np.float32)}
+             for _ in range(2)]
+    port = [jax.tree_util.tree_map(torch.from_numpy, t) for t in slots]
+    red, err = t_comp.ef_allreduce_tree(port, [t_comp.init_error_tree(g) for g in port],
+                                        make_mesh(2, ["cpu"] * 2))
+    stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *slots)
+    j_red, j_err = jax.vmap(lambda g, e: j_comp.ef_allreduce_tree(g, e, "pod"),
+                            axis_name="pod")(stacked, j_comp.init_error_tree(stacked))
+    for got, ref in zip(jax.tree_util.tree_leaves(red),
+                        jax.tree_util.tree_leaves(jax.tree_util.tree_map(lambda x: x[0], j_red))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=0)
+    for s in range(2):
+        for got, ref in zip(jax.tree_util.tree_leaves(err[s]), jax.tree_util.tree_leaves(
+                jax.tree_util.tree_map(lambda x: x[s], j_err))):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=0)
     assert t_comp.compression_ratio(port[0]) == j_comp.compression_ratio(slots[0])
 
 
