@@ -150,7 +150,22 @@ path and read just after it:
    (2, 4) with ``save_checkpoint(layout=)`` under ``build/`` and restored
    onto (2, 2) byte-equal, the directory removed; (f)
    ``make_production_mesh(devices=[card] * 256)`` lays the trained params
-   out and gathers them back byte-equal.
+   out and gathers them back byte-equal; (g) each family split after dense
+   GQA and MoE — minicpm3-4b (MLA), mamba2-780m (SSM, 12 of 48 layers),
+   zamba2-2.7b (hybrid, one group of 6 of 54 layers), whisper-large-v3
+   (encdec), llama-3.2-vision-90b (vlm, 10 of 100 layers; the SSM cuts
+   are for conditioning, ``TP_BF16_LAYERS``) — at full width in bf16 on
+   (1, 4): ``forward`` of 8 × 256
+   tokens, ``prefill`` and 16 ticks against one device by the lm rules,
+   with tick ms, kernel launches and device ms per tick beside the
+   one-device run's (whose weights are freed before the mesh's pieces
+   run); (h) minicpm3-4b (its latent cache split by sequence, the heads
+   by ``kv_up``) and mamba2-780m (SSD weights that do not follow their
+   heads) in fp32 on (1, 4): forward, a 256-token prefill into a
+   272-slot cache and 2 ticks at full depth, every logit within
+   1e-3·(1+|logit|); (i) mamba2-780m's fp32 step of 2 × 1,024 tokens at
+   6 of its 48 layers on (2, 4) against one device, AdamW's first moment
+   within 1e-4 of each leaf's largest entry.
 9. **train**, the training plane, after the tp path's weights are freed
    (it runs none of the CLIMBER kernels: its launch counts are zeros):
    (a) ``train()`` of internlm2-1.8b (``TRAIN_ARCH``) at its full width,
@@ -170,7 +185,9 @@ path and read just after it:
    optimizer).  (b) At 4 of the 24 layers, on one batch: the microbatched
    step's loss within 5e-2 of the unsplit step's, and
    ``shard_train_step`` on ``make_mesh(2, [card] * 2)`` against the
-   one-slot step: loss within 1e-5 relative, weights within 5e-2.  (c) One
+   one-slot step (a (data, model) mesh with one model slot: the state
+   laid out by ``make_state_shardings``, each microbatch's rows split over
+   the slots): loss within 1e-5 relative, weights within 5e-2.  (c) One
    step each of mamba2-780m (the SSD scan's backward) and olmoe-1b-7b
    (``moe_local``'s) at full width and 2 layers: finite loss and grads,
    the loss equal to ``cross_entropy(Model.forward(...))`` of the same
@@ -1958,6 +1975,24 @@ TP_FP32_TOL = 1e-3            # fp32 logits: within 1e-3·(1+|logit|)
 TP_TRAIN_TOL = 5e-2           # the reference's sharded-step bound
 TP_GRAD_ROWS = 2              # the fp32 first-moment step: one row per data shard
 TP_GRAD_TOL = 1e-4            # fp32 first moment: |Δ| within 1e-4 of a leaf's largest
+# (g): every family split after dense GQA and MoE, bf16 on TP_MESH; (h): the
+# two whose split is new in kind (a sequence-split latent; SSD weights that
+# do not follow their heads) in fp32; (i): the SSM's sharded train step
+TP_FAMILIES = ("minicpm3-4b", "mamba2-780m", "zamba2-2.7b", "whisper-large-v3",
+               "llama-3.2-vision-90b")
+TP_FP32_ARCHS = ("minicpm3-4b", "mamba2-780m")
+TP_SSM_ARCH = "mamba2-780m"
+# depths of the (g) bf16 checks and the (i) step cut for conditioning, not
+# memory: at full depth the seeded SSM families amplify rounding past the
+# checks' bounds on ONE device (tools/tp_probe.py on an H100, PERF.md §6):
+# its bf16 forward flips 92 (mamba2, 48 layers) and 243 (zamba2, 54) clear
+# greedy tokens of its own fp32 forward (8 / 52 at 24 layers, 0 / 7 at 12),
+# and its fp32 step in 2 microbatches differs from the unsplit step's first
+# moment by 3.97e-4 of a leaf's largest entry at 48 layers, 1.27e-4 at 24,
+# 5.15e-5 at 12, 4.22e-5 at 6; the mesh tracks that floor at every depth
+TP_BF16_LAYERS = {"mamba2-780m": 12, "zamba2-2.7b": 6}
+TP_SSM_STEP_LAYERS = 6
+TP_FP32_FAMILY_PROMPT = 256   # one SSD chunk; 256 + 2 ticks fit the 272-slot cache
 
 
 def profile_tick(fn):
@@ -2021,6 +2056,130 @@ def first_moment_check(args, one, tp, opt, tpipe, p_lay, o_lay, dev):
     return row
 
 
+def tp_serve(model, ps, batch, forced=None):
+    """``prefill`` of ``batch`` into a ``TP_MAX_LEN`` cache and ``TP_TICKS``
+    greedy ``decode_step`` ticks (the ``forced`` tokens where given):
+    (last-position logits of each, the tokens fed, timings with one
+    profiled tick's kernel launches and device ms)."""
+    from repro_torch.models import decode_step, prefill
+    (lg, cache), pre_s = sync_wall(lambda: prefill(
+        model, ps, batch, max_len=TP_MAX_LEN, kv_chunk=PREFILL_CHUNK))
+    logits, toks, ticks = [lg[:, -1]], [], []
+    for i in range(TP_TICKS):
+        tok = lg[:, -1:].argmax(-1).int() if forced is None else forced[i]
+        toks.append(tok)
+        (lg, cache), secs = sync_wall(lambda: decode_step(model, ps, cache, tok))
+        logits.append(lg[:, -1])
+        ticks.append(secs)
+    launches, busy = profile_tick(lambda: decode_step(model, ps, cache, toks[-1]))
+    steady = ticks[1:]
+    rows = batch["tokens"].shape[0]
+    return logits, toks, {"prefill_s": pre_s,
+                          "tick_ms": sum(steady) / len(steady) * 1e3,
+                          "tick_ms_first": ticks[0] * 1e3,
+                          "tokens_per_s": rows * len(steady) / sum(steady),
+                          "tick_kernel_launches": launches, "tick_device_ms": busy}
+
+
+def tp_family(args, arch, dev, mesh, out):
+    """(g): ``arch`` at full width in bf16 (the vlm at ``LM_DEPTH``, the SSM
+    families at ``TP_BF16_LAYERS``), on
+    ``mesh`` against one device: ``forward`` of ``TP_ROWS`` × ``TP_PROMPT``
+    tokens by the lm rules, then ``prefill`` and ``TP_TICKS`` ticks, the
+    mesh fed the one-device run's greedy tokens.  The one-device run goes
+    first and its weights are freed before the mesh's pieces run.  Raises;
+    returns the row."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Model
+    cfg = get_config(arch, smoke=args.lm_smoke)
+    depth = {**LM_DEPTH, **TP_BF16_LAYERS}.get(arch)
+    if depth and not args.lm_smoke:
+        cfg = cfg.replace(num_layers=depth)
+        why = "memory" if arch in LM_DEPTH else "bf16 conditioning (TP_BF16_LAYERS)"
+        out.setdefault("reduced", {})[arch] = \
+            f"{depth} of {get_config(arch).num_layers} layers ({why})"
+    torch.cuda.reset_peak_memory_stats()
+    one = Model(cfg)
+    params = one.init(torch.Generator(device=dev).manual_seed(args.seed + 5), dev)
+    batch = TokenPipeline(cfg, global_batch=TP_ROWS, seq_len=TP_PROMPT, seed=args.seed,
+                          device=dev).batch_at(0)
+    batch["tokens"] = batch["tokens"][:, :TP_PROMPT]
+    tp = Model(cfg, mesh=mesh)
+    row = {"mesh": list(mesh.shape.values()), "layers": cfg.num_layers, "rows": TP_ROWS,
+           "prompt": TP_PROMPT, "ticks": TP_TICKS, "max_len": TP_MAX_LEN}
+    with torch.no_grad():
+        full = one(params, batch, kv_chunk=PREFILL_CHUNK)
+        ref_logits, toks, row["one_device"] = tp_serve(one, params, batch)
+        pieces = tp.param_layout().shard(params)
+        del params
+        torch.cuda.empty_cache()
+        row["forward"] = logits_rule(tp(pieces, batch, kv_chunk=PREFILL_CHUNK), full,
+                                     f"tp [{arch} forward]")
+        del full
+        got_logits, _, row["mesh_run"] = tp_serve(tp, pieces, batch, forced=toks)
+        row["decode"] = logits_rule(torch.stack(got_logits), torch.stack(ref_logits),
+                                    f"tp [{arch} decode]")
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del pieces, ref_logits, got_logits, tp
+    torch.cuda.empty_cache()
+    say(f"tp family[{cfg.name}, {cfg.num_layers} layers, on {tuple(mesh.shape.values())} "
+        f"slots of one card]: " + json.dumps(row, default=float))
+    return row
+
+
+def tp_fp32(args, arch, dev, mesh):
+    """(h): ``arch`` at full width in fp32 on ``mesh`` against one device:
+    ``forward`` of ``TP_ROWS`` × ``TP_FP32_FAMILY_PROMPT`` tokens, then its prefill
+    into a ``TP_FP32_MAX_LEN`` cache and ``TP_FP32_TICKS`` ticks, every
+    logit within ``TP_FP32_TOL``·(1+|logit|).  Raises; returns the row."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Model, decode_step, prefill
+    cfg = get_config(arch, smoke=args.lm_smoke)
+    torch.cuda.reset_peak_memory_stats()
+    one = Model(cfg)
+    params = one.init(torch.Generator(device=dev).manual_seed(args.seed + 6), dev,
+                      dtype=torch.float32)
+    toks = TokenPipeline(cfg, global_batch=TP_ROWS, seq_len=TP_FP32_FAMILY_PROMPT + TP_FP32_TICKS,
+                         seed=args.seed + 1, device=dev).batch_at(0)["tokens"]
+    tp = Model(cfg, mesh=mesh)
+
+    def run(model, ps):
+        batch = {"tokens": toks[:, :TP_FP32_FAMILY_PROMPT]}
+        logits = [model(ps, batch)]
+        lg, cache = prefill(model, ps, batch, max_len=TP_FP32_MAX_LEN)
+        logits.append(lg)
+        for i in range(TP_FP32_TICKS):
+            t = toks[:, TP_FP32_FAMILY_PROMPT + i:TP_FP32_FAMILY_PROMPT + i + 1]
+            lg, cache = decode_step(model, ps, cache, t)
+            logits.append(lg)
+        return logits
+
+    with torch.no_grad():
+        ref = run(one, params)
+        pieces = tp.param_layout().shard(params)
+        del params
+        got = run(tp, pieces)
+        names = ["forward", "prefill"] + [f"tick {i}" for i in range(TP_FP32_TICKS)]
+        errs = [logits_rule(g, r, f"tp [{arch} fp32 {n}]", TP_FP32_TOL)["rel_err"]
+                for n, g, r in zip(names, got, ref)]
+    row = {"mesh": list(mesh.shape.values()), "layers": cfg.num_layers, "rows": TP_ROWS,
+           "prompt": TP_FP32_FAMILY_PROMPT, "max_len": TP_FP32_MAX_LEN, "ticks": TP_FP32_TICKS,
+           "dtype": "float32", "rel_err": dict(zip(names, errs)),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.use_mla:
+        row["latent_split"] = "sequence" if TP_FP32_MAX_LEN % mesh.shape["model"] == 0 \
+            else "whole"
+    del pieces, ref, got, tp
+    torch.cuda.empty_cache()
+    say(f"tp fp32[{cfg.name} on {tuple(mesh.shape.values())} slots of one card]: "
+        + json.dumps(row, default=float))
+    return row
+
+
 def tp_path(args, dev, report):
     """The model axis (module docstring, item 8): (a) internlm2-1.8b on
     ``TP_MESH`` — forward, prefill and ``TP_TICKS`` decode ticks against one
@@ -2028,8 +2187,11 @@ def tp_path(args, dev, report):
     ``set_decode_shard``; (c) olmoe-1b-7b on ``TP_MOE_MESH`` against each
     data half alone; (d) the train step on ``TP_TRAIN_MESH`` against the
     one-device step; (e) a params checkpoint saved from it restored onto
-    ``TP_RESHARD_MESH``; (f) the production mesh's layout round trip.
-    Every mesh is slots of this one card.  Every hard check raises.
+    ``TP_RESHARD_MESH``; (f) the production mesh's layout round trip;
+    (g) each of ``TP_FAMILIES`` on ``TP_MESH`` in bf16 (:func:`tp_family`);
+    (h) ``TP_FP32_ARCHS`` in fp32 (:func:`tp_fp32`); (i) ``TP_SSM_ARCH``'s
+    fp32 first moment on ``TP_TRAIN_MESH``.  Every mesh is slots of this
+    one card.  Every hard check raises.
     Returns the path's launch counts (it runs none of the CLIMBER
     kernels)."""
     import torch
@@ -2074,26 +2236,8 @@ def tp_path(args, dev, report):
                                      full, "tp [forward]")
         del full
 
-        def serve(model, ps, forced=None):
-            (lg, cache), pre_s = sync_wall(lambda: prefill(
-                model, ps, {"tokens": prompt}, max_len=TP_MAX_LEN, kv_chunk=PREFILL_CHUNK))
-            logits, toks, ticks = [lg[:, -1]], [], []
-            for i in range(TP_TICKS):
-                tok = lg[:, -1:].argmax(-1).int() if forced is None else forced[i]
-                toks.append(tok)
-                (lg, cache), secs = sync_wall(lambda: decode_step(model, ps, cache, tok))
-                logits.append(lg[:, -1])
-                ticks.append(secs)
-            launches, busy = profile_tick(lambda: decode_step(model, ps, cache, toks[-1]))
-            steady = ticks[1:]
-            return logits, toks, {"prefill_s": pre_s,
-                                  "tick_ms": sum(steady) / len(steady) * 1e3,
-                                  "tick_ms_first": ticks[0] * 1e3,
-                                  "tokens_per_s": TP_ROWS * len(steady) / sum(steady),
-                                  "tick_kernel_launches": launches, "tick_device_ms": busy}
-
-        ref_logits, toks, row["one_device"] = serve(one, params)
-        got_logits, _, row["mesh_run"] = serve(tp, pieces, forced=toks)
+        ref_logits, toks, row["one_device"] = tp_serve(one, params, {"tokens": prompt})
+        got_logits, _, row["mesh_run"] = tp_serve(tp, pieces, {"tokens": prompt}, forced=toks)
         row["decode"] = logits_rule(torch.stack(got_logits), torch.stack(ref_logits),
                                     "tp [decode]")
     out["serve"] = row
@@ -2282,6 +2426,35 @@ def tp_path(args, dev, report):
     del trained, back, prod_slots, tp, one
     torch.cuda.empty_cache()
 
+    # ---- (g) MLA, SSM, hybrid, encdec and vlm on TP_MESH, bf16 -------------
+    mesh = mesh_of(TP_MESH)
+    out["families"] = {arch: tp_family(args, arch, dev, mesh, out) for arch in TP_FAMILIES}
+    peaks += [r["peak_memory_gb"] for r in out["families"].values()]
+
+    # ---- (h) the two splits new in kind, fp32, on TP_MESH ------------------
+    out["fp32_families"] = {arch: tp_fp32(args, arch, dev, mesh) for arch in TP_FP32_ARCHS}
+    peaks += [r["peak_memory_gb"] for r in out["fp32_families"].values()]
+
+    # ---- (i) the SSM's train step on TP_TRAIN_MESH, fp32 first moment ------
+    torch.cuda.reset_peak_memory_stats()
+    scfg = get_config(TP_SSM_ARCH, smoke=smoke)
+    if not smoke:
+        scfg = scfg.replace(num_layers=TP_SSM_STEP_LAYERS)
+        out.setdefault("reduced", {})[f"{TP_SSM_ARCH} step"] = \
+            f"{TP_SSM_STEP_LAYERS} of {get_config(TP_SSM_ARCH).num_layers} layers " \
+            f"(fp32 conditioning: TP_BF16_LAYERS' note)"
+    smesh = mesh_of(TP_TRAIN_MESH)
+    stp = Model(scfg, mesh=smesh)
+    p_lay, o_lay = make_state_shardings(smesh, stp)
+    spipe = TokenPipeline(scfg, TP_TRAIN_BATCH, seq, seed=args.seed, mode="periodic",
+                          device=dev)
+    out["ssm_grads"] = first_moment_check(args, Model(scfg), stp, opt, spipe, p_lay, o_lay,
+                                          dev)
+    peaks += [out["ssm_grads"]["one_device_peak_memory_gb"],
+              out["ssm_grads"]["peak_memory_gb"]]
+    del stp
+    torch.cuda.empty_cache()
+
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     out["seconds"] = time.perf_counter() - t_path
@@ -2345,8 +2518,8 @@ def train_path(args, dev, report):
     from repro_torch.launch.train import train
     from repro_torch.models import Model, count_params, cross_entropy, named_params
     from repro_torch.models.params import tree_leaves, tree_map
-    from repro_torch.train import (AdamW, StepFailure, constant_lr, make_train_step,
-                                   replicate, shard_train_step, value_and_grad)
+    from repro_torch.train import (AdamW, StepFailure, constant_lr, make_state_shardings,
+                                   make_train_step, shard_train_step, value_and_grad)
 
     smoke = args.lm_smoke
     seq, steps, every = (64, 6, 4) if smoke else (TRAIN_SEQ, TRAIN_STEPS, TRAIN_EVERY)
@@ -2517,22 +2690,27 @@ def train_path(args, dev, report):
     batch = TokenPipeline(ccfg, TRAIN_BATCH, seq, seed=args.seed, mode="periodic",
                           device=dev).batch_at(0)
     runs = {}
+    # two slots take each microbatch's rows between them, so at TRAIN_MICRO
+    # microbatches they hold the rows one device holds at a time
     for name, micro, slots in (("micro", TRAIN_MICRO, 1), ("plain", 1, 1),
-                               ("two_slots", TRAIN_MICRO // 2, 2)):
+                               ("two_slots", TRAIN_MICRO, 2)):
         p = tree_map(torch.clone, init)
         torch.cuda.reset_peak_memory_stats()
         if slots == 1:
             fn = make_train_step(model, opt, kv_chunk=TRAIN_KV_CHUNK, microbatches=micro)
+            state = opt.init(p)
         else:
             mesh = make_mesh(slots, [dev] * slots)
             fn = shard_train_step(model, opt, mesh, kv_chunk=TRAIN_KV_CHUNK,
                                   microbatches=micro)
-            p = replicate(p, mesh)
-        (p, _, met), secs = sync_wall(lambda: fn(p, opt.init(p[0] if slots > 1 else p),
-                                                 batch))
+            p_lay, _ = make_state_shardings(mesh, model)
+            p = p_lay.shard(p)
+            state = opt.init_slots(p)
+        (p, _, met), secs = sync_wall(lambda: fn(p, state, batch))
+        del state
         runs[name] = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
                       "seconds": secs, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                      "params": named_params(p[0] if slots > 1 else p)}
+                      "params": named_params(p_lay.gather(p) if slots > 1 else p)}
     a, b = runs["micro"], runs["two_slots"]
     w_delta = max(float((a["params"][n].float() - b["params"][n].float()).abs().max())
                   for n in a["params"])

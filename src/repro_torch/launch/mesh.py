@@ -161,6 +161,15 @@ def make_production_mesh(*, multi_pod: bool = False,
     return make_mesh(shape, axes, devices)
 
 
+def with_model_axis(mesh: Optional[DeviceMesh]) -> Optional[DeviceMesh]:
+    """``mesh`` with a ``model`` axis: itself where it has one, else the
+    same slots in the same order with a ``model`` axis of size 1 last (a
+    1-D ``data`` mesh as a (data, model) mesh with one model slot)."""
+    if mesh is None or "model" in mesh.axis_names:
+        return mesh
+    return DeviceMesh(mesh.devices[..., None], mesh.axis_names + ("model",))
+
+
 def as_mesh(mesh) -> Optional[DeviceMesh]:
     """``None``, a :class:`DeviceMesh`, a device or a sequence of devices
     as a :class:`DeviceMesh` (None stays None)."""

@@ -1,7 +1,7 @@
 """End-to-end training (the JAX package's ``repro.launch.train``).
 
 Runs any arch (smoke or full config) for N steps with the whole training
-plane engaged: the train step (data-parallel over a mesh when one is
+plane engaged: the train step (over a (data, model) mesh when one is
 given), the deterministic resumable token pipeline, atomic checkpoints in
 the reference's format, watchdog + retry-with-restore recovery.  It runs on
 the card unless ``device`` names another; with no card it raises.
@@ -21,14 +21,14 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenDraws, TokenPipeline
-from repro_torch.launch.mesh import as_mesh
+from repro_torch.launch.mesh import as_mesh, with_model_axis
 from repro_torch.models import Model
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.fault_tolerance import WatchdogPolicy, run_with_recovery
 from repro_torch.models.params import tree_map
 from repro_torch.train.optimizer import AdamW, AdamWState, warmup_cosine
-from repro_torch.train.train_step import (make_train_step, replicate,
-                                          shard_train_step, state_layout)
+from repro_torch.train.train_step import (make_train_step, shard_train_step,
+                                          state_layout)
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 
 
@@ -43,12 +43,11 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
     ``ckpt_dir`` (or from ``Model.init`` with a generator seeded by
     ``seed``).  Returns (the parameters, the losses of the steps run).
 
-    ``mesh`` (a DeviceMesh or a device list) runs the data-parallel step
-    with the state on its lead device, or, for a mesh with a ``model``
-    axis (e.g. ``make_mesh((4, 2), ("data", "model"))``), the sharded step
-    with the state laid out on its slots and the batch over its other axes,
-    as the reference's ``train(mesh=...)``; else the state lies on
-    ``device``.
+    ``mesh`` (a DeviceMesh or a device list; e.g. ``make_mesh((4, 2),
+    ("data", "model"))``, or ``make_mesh(2)``, a (data, model) mesh with one
+    model slot) runs :func:`shard_train_step` with the state laid out on its
+    slots and the batch over its non-model axes, as the reference's
+    ``train(mesh=...)``; else the state lies on ``device``.
     ``draws`` replaces the pipeline's token draws.  ``on_event(kind,
     info)`` receives the recovery loop's events (``checkpoint``,
     ``failure``, ``restored``, ``straggler``) and one ``step`` event per
@@ -61,10 +60,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
     before its in-place update), so its retry starts from the last good
     state, as the reference's driver discards such a step's new state."""
     cfg = get_config(arch, smoke=smoke)
-    mesh = as_mesh(mesh)
-    sharded = mesh is not None and "model" in mesh.axis_names
-    model = Model(cfg, mesh=mesh, batch_axes=tuple(
-        a for a in mesh.axis_names if a != "model") or ("data",)) if sharded else Model(cfg)
+    mesh = with_model_axis(as_mesh(mesh))
+    model = Model(cfg) if mesh is None else Model(
+        cfg, mesh=mesh, batch_axes=tuple(a for a in mesh.axis_names if a != "model"))
     dev = mesh.lead if mesh is not None else resolve_device(device)
     emit = on_event or (lambda kind, info: None)
     opt = AdamW(lr=warmup_cosine(lr, max(steps // 10, 1), steps))
@@ -73,46 +71,38 @@ def train(arch: str, *, smoke: bool = True, steps: int = 20, batch: int = 4,
 
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
     start_step = 0
-    if sharded:
+    if mesh is not None:
         layout = state_layout(mesh, model)
         state = {"params": model.param_layout().shard(params)}
         state["opt"] = opt.init_slots(state["params"])
-    else:
-        state = {"params": params, "opt": opt.init(params)}
-    if mesh is not None:
         step_fn = shard_train_step(model, opt, mesh, kv_chunk=kv_chunk,
                                    microbatches=microbatches)
-        if not sharded:
-            state["params"] = replicate(params, mesh)
     else:
+        state = {"params": params, "opt": opt.init(params)}
         step_fn = make_train_step(model, opt, kv_chunk=kv_chunk,
                                   microbatches=microbatches)
     del params
 
     def saved_tree():
-        p = state["params"]
-        if sharded:                    # whole leaves, gathered to the host
+        if mesh is not None:           # whole leaves, gathered to the host
             return layout.gather([{"params": a, "opt": b}
-                                  for a, b in zip(p, state["opt"])], device="cpu")
-        return {"params": p[0] if mesh is not None else p, "opt": state["opt"]}
+                                  for a, b in zip(state["params"], state["opt"])],
+                                 device="cpu")
+        return {"params": state["params"], "opt": state["opt"]}
 
     def restore() -> int:
         if not ckpt_dir:
             return start_step
-        if sharded:
-            like = {"params": model.abstract(),
-                    "opt": AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
-                                      m=tree_map(_meta_fp32, model.abstract()),
-                                      v=tree_map(_meta_fp32, model.abstract()))}
-            tree, step, _ = ckpt_mod.restore_checkpoint(ckpt_dir, like, device=layout)
-            state["params"], state["opt"] = [t["params"] for t in tree], [t["opt"] for t in tree]
-            return step
-        tree, step, _ = ckpt_mod.restore_checkpoint(
-            ckpt_dir, saved_tree(), device=mesh if mesh is not None else dev)
-        if mesh is not None:
-            state["params"], state["opt"] = [t["params"] for t in tree], tree[0]["opt"]
-        else:
+        if mesh is None:
+            tree, step, _ = ckpt_mod.restore_checkpoint(ckpt_dir, saved_tree(), device=dev)
             state["params"], state["opt"] = tree["params"], tree["opt"]
+            return step
+        like = {"params": model.abstract(),
+                "opt": AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                                  m=tree_map(_meta_fp32, model.abstract()),
+                                  v=tree_map(_meta_fp32, model.abstract()))}
+        tree, step, _ = ckpt_mod.restore_checkpoint(ckpt_dir, like, device=layout)
+        state["params"], state["opt"] = [t["params"] for t in tree], [t["opt"] for t in tree]
         return step
 
     if ckpt_dir and ckpt_mod.latest_step(ckpt_dir) is not None:

@@ -13,12 +13,16 @@ Cache layouts (leading-``layers``-stacked, as in the reference):
 a host int here (the reference's 0-d int32).  Caches are values:
 :func:`decode_step` returns a new cache and leaves its argument as it was.
 
-On a mesh (a ``Model`` with ``mesh``, dense GQA or MoE) the cache is a list
-with one cache per slot, each entry that slot's piece as
-:func:`repro_torch.distributed.sharding.cache_pspecs` lays it out (kv heads
-over ``model`` where they divide, else the sequence), its rows those of its
-data shard; ``prefill`` and ``decode_step`` take and return caches in that
-layout and the whole logits on the lead device.
+On a mesh (a ``Model`` with ``mesh``, any family) the cache is a
+:class:`MeshCache`, a list with one cache per slot, each entry that slot's
+piece as :func:`repro_torch.distributed.sharding.cache_pspecs` lays it out
+(kv heads over ``model`` where they divide, else the sequence; MLA's latent
+by sequence; SSM states by heads, conv tails by channels), its rows those
+of its data shard; ``prefill`` and ``decode_step`` take and return caches
+in that layout and the whole logits on the lead device.  A slot's SSD heads
+and conv channels are not its pieces of the SSM cache: each decode step
+fetches what its heads read and hands back what the pieces hold
+(:func:`repro_torch.models.ssm.take`).
 """
 from __future__ import annotations
 
@@ -43,16 +47,23 @@ class CacheSpec(NamedTuple):
 
 class MeshCache(list):
     """A cache on a mesh: one cache of local pieces per slot, in slot
-    order, and the whole cache's ``batch`` and ``max_len`` (which fix its
-    layout, ``cache_pspecs``)."""
+    order, and the whole cache's ``batch``, ``max_len``, ``enc_len`` and
+    ``img_len`` (which fix its layout, ``cache_pspecs``)."""
 
-    def __init__(self, slots, batch: int, max_len: int):
+    def __init__(self, slots, batch: int, max_len: int, enc_len: int = 0,
+                 img_len: int = 0):
         super().__init__(slots)
         self.batch, self.max_len = batch, max_len
+        self.enc_len, self.img_len = enc_len, img_len
+
+    def specs(self, cfg: ModelConfig, mesh) -> Dict[str, Any]:
+        return cache_pspecs(cfg, mesh, self.batch, self.max_len, self.enc_len,
+                            self.img_len)
 
     def gather(self, cfg: ModelConfig, mesh) -> Dict[str, Any]:
         """The whole cache, on the lead device."""
-        lay = cache_shardings(cfg, mesh, self.batch, self.max_len)
+        lay = cache_shardings(cfg, mesh, self.batch, self.max_len, self.enc_len,
+                              self.img_len)
         whole = lay.gather([{k: v for k, v in c.items() if k != "len"} for c in self])
         return dict(whole, len=self[0]["len"])
 
@@ -119,7 +130,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
         whole = init_cache(cfg, batch, max_len, enc_len, img_len, device=mesh.lead)
         whole.pop("len")
         slots = cache_shardings(cfg, mesh, batch, max_len, enc_len, img_len).shard(whole)
-        return MeshCache([dict(c, len=0) for c in slots], batch, max_len)
+        return MeshCache([dict(c, len=0) for c in slots], batch, max_len, enc_len, img_len)
     dev = resolve_device(device)
     return {name: 0 if name == "len" else torch.zeros(s.shape, dtype=s.dtype,
                                                       device=dev)
@@ -127,66 +138,222 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                                         img_len).items()}
 
 
-def _cache_mode(cfg: ModelConfig, mesh, batch: int, max_len: int) -> str:
-    """How ``cache_pspecs`` lays a KV cache out: "kv", "seq" or "rep"."""
-    spec = cache_pspecs(cfg, mesh, batch, max_len)["k"]
-    return "kv" if spec[3] == "model" else "seq" if spec[2] == "model" else "rep"
+def _kv_mode(spec) -> str:
+    """How a [.., B, S, KV, hd] cache entry's ``spec`` splits it over
+    ``model``: "kv" (kv heads), "seq" (sequence) or "rep" (not at all)."""
+    spec = tuple(spec)
+    return "kv" if spec[-2] == "model" else "seq" if spec[-3] == "model" else "rep"
 
 
-def _mesh_decode_step(model: Model, params, cache, token):
+class _SSMRanges(NamedTuple):
+    """Per slot: the SSD heads and conv channels it computes (``heads``,
+    ``conv``) and those its pieces of the cache's ``h`` and ``conv`` hold
+    (``cache_h``, ``cache_conv``)."""
+    heads: list
+    conv: list
+    cache_h: list
+    cache_conv: list
+
+
+def _ssm_ranges(cfg: ModelConfig, mesh, specs) -> _SSMRanges:
+    d_in, h, n = SSM.ssm_dims(cfg)
+    nm = mesh.axis_size("model")
+    part = lambda full, split, j: [(j * full // nm, (j + 1) * full // nm)] if split \
+        else [(0, full)]
+    out = _SSMRanges([], [], [], [])
+    for s in range(mesh.size):
+        j = mesh.coords(s).get("model", 0)
+        heads, _, conv = SSM.slot_heads(cfg, j, nm)
+        out.heads.append([heads])
+        out.conv.append(conv)
+        out.cache_h.append(part(h, tuple(specs["h"])[-3] == "model", j))
+        out.cache_conv.append(part(d_in + 2 * n, tuple(specs["conv"])[-1] == "model", j))
+    return out
+
+
+def _ssm_states(mesh, r: _SSMRanges, hs, convs):
+    """The slots' SSM states of their heads from their pieces of one
+    layer's cache (``hs`` [B, H_p, hd, N], ``convs`` [B, 3, C_p])."""
+    h = SSM.take(hs, r.cache_h, r.heads, mesh, 1)
+    c = SSM.take(convs, r.cache_conv, r.conv, mesh, 2)
+    return [SSM.SSMState(a, b) for a, b in zip(h, c)]
+
+
+def _ssm_pieces(mesh, r: _SSMRanges, states):
+    """The slots' pieces of one layer's cache from their states: (h, conv)."""
+    return (SSM.take([st.h for st in states], r.heads, r.cache_h, mesh, 1),
+            SSM.take([st.conv for st in states], r.conv, r.cache_conv, mesh, 2))
+
+
+def _stack(per_layer):
+    """Per slot, its entries of ``per_layer`` (one per-slot list per layer)
+    stacked; slots whose entries are the same tensors share the stack."""
+    return _SlotRun.map(lambda *ts: torch.stack(ts), *per_layer)
+
+
+def _mesh_decode_step(model: Model, params, cache: "MeshCache", token):
     cfg, mesh = model.cfg, model.mesh
     token = torch.as_tensor(token)
     run = _SlotRun(model, 1, batch_axes(mesh))
     x, emb = model.mesh_embed(run, params, run.rows(token))
     clen = int(cache[0]["len"])
-    mode = _cache_mode(cfg, mesh, cache.batch, cache.max_len)
-    ks, vs = [[] for _ in params], [[] for _ in params]
-    for li in range(cfg.num_layers):
-        lps = model.local_trees([p["layers"][li] for p in params],
-                                model.param_specs()["layers"], depth=1)
-        hn = [L.rmsnorm(h, lp["ln1"]) for h, lp in zip(x, lps)]
-        parts, nk, nv = L.gqa_decode_slots([lp["attn"] for lp in lps], hn,
-                                           [c["k"][li] for c in cache],
-                                           [c["v"][li] for c in cache], clen, cfg,
-                                           mesh, mode)
-        x = run.add(x, psum(parts, mesh, "model"))
-        hn = [L.rmsnorm(h, lp["ln2"]) for h, lp in zip(x, lps)]
-        if cfg.family == "moe":
-            mlp = model._moe_apply([lp["moe"] for lp in lps], hn)
-        else:
-            mlp = psum([L.swiglu_local(lp["mlp"], h, cfg.d_ff, j, run.nm)
-                        for lp, h, j in zip(lps, hn, run.js)], mesh, "model")
-        x = run.add(x, mlp)
-        for s in range(len(params)):
-            ks[s].append(nk[s])
-            vs[s].append(nv[s])
+    specs = cache.specs(cfg, mesh)
+    n = len(params)
+    local = lambda lps, depth=1, key="layers": model.local_trees(
+        lps, model.param_specs()[key], depth)
+
+    def gqa_block(x, lps, ck, cv, attn="attn", ln="ln1"):
+        hn = [L.rmsnorm(h, lp[ln]) for h, lp in zip(x, lps)]
+        parts, nk, nv = L.gqa_decode_slots([lp[attn] for lp in lps], hn, ck, cv, clen, cfg,
+                                           mesh, _kv_mode(specs["k"]))
+        return run.add(x, psum(parts, mesh, "model")), nk, nv
+
+    def cross_block(x, lps, xk, xv, attn, ln):
+        hn = [L.rmsnorm(h, lp[ln]) for h, lp in zip(x, lps)]
+        return psum(L.cross_attention_slots([lp[attn] for lp in lps], hn, xk, xv, cfg, mesh,
+                                            _kv_mode(specs["xk"]) == "seq"), mesh, "model")
+
+    def ssm_layer(x, lps, r, hs, convs):
+        hn = [L.rmsnorm(h, lp["ln"]) for h, lp in zip(x, lps)]
+        sps = SSM.slot_params([lp["ssm"] for lp in lps], cfg, mesh)
+        y, states = SSM.ssd_decode_slots(sps, hn, _ssm_states(mesh, r, hs, convs), cfg, mesh)
+        return (run.add(x, psum(y, mesh, "model")),) + _ssm_pieces(mesh, r, states)
+
+    fam = cfg.family
+    if fam in ("dense", "moe") and not cfg.use_mla:
+        ks, vs = [], []
+        for li in range(cfg.num_layers):
+            lps = local([p["layers"][li] for p in params])
+            x, nk, nv = gqa_block(x, lps, [c["k"][li] for c in cache],
+                                  [c["v"][li] for c in cache])
+            x = model.mesh_mlp(run, x, lps)
+            ks.append(nk)
+            vs.append(nv)
+        new = {"k": _stack(ks), "v": _stack(vs)}
+    elif cfg.use_mla:
+        seq_split = tuple(specs["ckv"])[2] == "model"
+        ckvs = []
+        for li in range(cfg.num_layers):
+            lps = local([p["layers"][li] for p in params])
+            hn = [L.rmsnorm(h, lp["ln1"]) for h, lp in zip(x, lps)]
+            parts, nc = L.mla_decode_slots([lp["attn"] for lp in lps], hn,
+                                           [c["ckv"][li] for c in cache], clen, cfg, mesh,
+                                           seq_split)
+            x = model.mesh_mlp(run, run.add(x, psum(parts, mesh, "model")), lps)
+            ckvs.append(nc)
+        new = {"ckv": _stack(ckvs)}
+    elif fam == "ssm":
+        r = _ssm_ranges(cfg, mesh, specs)
+        hs, cs = [], []
+        for li in range(cfg.num_layers):
+            x, h, c = ssm_layer(x, local([p["layers"][li] for p in params]), r,
+                                [c["h"][li] for c in cache], [c["conv"][li] for c in cache])
+            hs.append(h)
+            cs.append(c)
+        new = {"h": _stack(hs), "conv": _stack(cs)}
+    elif fam == "hybrid":
+        r = _ssm_ranges(cfg, mesh, specs)
+        shared = local([p["shared_attn"] for p in params], 0, "shared_attn")
+        hs, cs, ks, vs = [], [], [], []
+        for g in range(cfg.num_layers // cfg.hybrid_attn_every):
+            hg, cg = [], []
+            for i in range(cfg.hybrid_attn_every):
+                x, h, c = ssm_layer(x, local([p["layers"][g][i] for p in params], 2), r,
+                                    [c["h"][g][i] for c in cache],
+                                    [c["conv"][g][i] for c in cache])
+                hg.append(h)
+                cg.append(c)
+            x, nk, nv = gqa_block(x, shared, [c["k"][g] for c in cache],
+                                  [c["v"][g] for c in cache])
+            x = model.mesh_mlp(run, x, shared)
+            hs.append(_stack(hg))
+            cs.append(_stack(cg))
+            ks.append(nk)
+            vs.append(nv)
+        new = {"h": _stack(hs), "conv": _stack(cs), "k": _stack(ks), "v": _stack(vs)}
+    elif fam == "encdec":
+        ks, vs = [], []
+        for li in range(cfg.num_layers):
+            lps = local([p["layers"][li] for p in params])
+            x, nk, nv = gqa_block(x, lps, [c["k"][li] for c in cache],
+                                  [c["v"][li] for c in cache], "self_attn")
+            x = run.add(x, cross_block(x, lps, [c["xk"][li] for c in cache],
+                                       [c["xv"][li] for c in cache], "cross_attn", "ln_x"))
+            x = model.mesh_mlp(run, x, lps)
+            ks.append(nk)
+            vs.append(nv)
+        new = {"k": _stack(ks), "v": _stack(vs)}
+    elif fam == "vlm":
+        ks, vs = [], []
+        for g in range(cfg.num_layers // cfg.cross_attn_every):
+            kg, vg = [], []
+            for i in range(cfg.cross_attn_every - 1):
+                lps = local([p["layers"][g][i] for p in params], 2)
+                x, nk, nv = gqa_block(x, lps, [c["k"][g][i] for c in cache],
+                                      [c["v"][g][i] for c in cache])
+                x = model.mesh_mlp(run, x, lps)
+                kg.append(nk)
+                vg.append(nv)
+            cps = local([p["cross_layers"][g] for p in params], 1, "cross_layers")
+            a = cross_block(x, cps, [c["xk"][g] for c in cache], [c["xv"][g] for c in cache],
+                            "attn", "ln1")
+            x = run.add(x, run.map(lambda gt, t: torch.tanh(gt).to(t.dtype) * t,
+                                   [cp["gate"] for cp in cps], a))
+            x = model.mesh_mlp(run, x, cps)
+            ks.append(_stack(kg))
+            vs.append(_stack(vg))
+        new = {"k": _stack(ks), "v": _stack(vs)}
+    else:
+        raise ValueError(fam)
     logits = run.gather_logits(model.mesh_logits(run, emb, x))
-    return logits, MeshCache([{"k": torch.stack(k), "v": torch.stack(v), "len": clen + 1}
-                              for k, v in zip(ks, vs)], cache.batch, cache.max_len)
+    slots = [dict(cache[s], **{k: v[s] for k, v in new.items()}, len=clen + 1)
+             for s in range(n)]
+    return logits, MeshCache(slots, cache.batch, cache.max_len, cache.enc_len, cache.img_len)
 
 
 def _mesh_prefill(model: Model, params, batch, max_len: int, kv_chunk: int):
-    cfg = model.cfg
+    cfg, mesh = model.cfg, model.mesh
     tokens = torch.as_tensor(batch["tokens"])
     s = tokens.shape[1]
     max_len = max(max_len, s)
-    run = _SlotRun(model, s, batch_axes(model.mesh))
-    x, emb = model.mesh_embed(run, params, run.rows(tokens))
-    xs = run.scatter(x)
+    enc_len = batch["frames"].shape[1] if cfg.family == "encdec" else 0
+    img_len = batch["image_embeds"].shape[1] if cfg.family == "vlm" else 0
+    parts: list = []
+    run, local = model._mesh_forward(params, batch, kv_chunk, batch_axes(mesh), parts)
+    logits = run.gather_logits(local)
     pad = (lambda t: t) if max_len == s else (
-        lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, max_len - s)))
-    ks, vs = [[] for _ in params], [[] for _ in params]
-    for li in range(cfg.num_layers):
-        xs, k, v = model.mesh_layer(run, xs, [p["layers"][li] for p in params], kv_chunk,
-                                    cache_kv=True)
-        k = model.constrain_kv([pad(t) for t in k])
-        v = model.constrain_kv([pad(t) for t in v])
-        for slot in range(len(params)):
-            ks[slot].append(k[slot])
-            vs[slot].append(v[slot])
-    logits = run.gather_logits(model.mesh_logits(run, emb, run.full(xs)))
-    return logits, MeshCache([{"k": torch.stack(k), "v": torch.stack(v), "len": s}
-                              for k, v in zip(ks, vs)], tokens.shape[0], max_len)
+        lambda t: torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, max_len - s)))
+    kv = lambda per_slot, i, fill=pad: model.constrain_kv([fill(a[i]) for a in per_slot])
+    same = lambda t: t
+    fam = cfg.family
+    if fam in ("dense", "moe") and not cfg.use_mla:
+        new = {"k": _stack([kv(pl, 0) for pl in parts]), "v": _stack([kv(pl, 1) for pl in parts])}
+    elif cfg.use_mla:
+        new = {"ckv": _stack([kv(pl, 0) for pl in parts])}
+    elif fam == "ssm":
+        r = _ssm_ranges(cfg, mesh, cache_pspecs(cfg, mesh, tokens.shape[0], max_len))
+        pieces = [_ssm_pieces(mesh, r, st) for st in parts]
+        new = {"h": _stack([p[0] for p in pieces]), "conv": _stack([p[1] for p in pieces])}
+    elif fam == "hybrid":
+        r = _ssm_ranges(cfg, mesh, cache_pspecs(cfg, mesh, tokens.shape[0], max_len))
+        pieces = [[_ssm_pieces(mesh, r, st) for st in states] for states, _ in parts]
+        new = {"h": _stack([_stack([p[0] for p in g]) for g in pieces]),
+               "conv": _stack([_stack([p[1] for p in g]) for g in pieces]),
+               "k": _stack([kv(a, 0) for _, a in parts]),
+               "v": _stack([kv(a, 1) for _, a in parts])}
+    elif fam == "encdec":
+        new = {"k": _stack([kv(pl, 0) for pl in parts]), "v": _stack([kv(pl, 1) for pl in parts]),
+               "xk": _stack([kv(pl, 2, same) for pl in parts]),
+               "xv": _stack([kv(pl, 3, same) for pl in parts])}
+    elif fam == "vlm":
+        new = {"k": _stack([_stack([kv(a, 0) for a in kvs]) for kvs, _ in parts]),
+               "v": _stack([_stack([kv(a, 1) for a in kvs]) for kvs, _ in parts]),
+               "xk": _stack([kv(x, 0, same) for _, x in parts]),
+               "xv": _stack([kv(x, 1, same) for _, x in parts])}
+    else:
+        raise ValueError(fam)
+    slots = [dict({k: v[i] for k, v in new.items()}, len=s) for i in range(len(params))]
+    return logits, MeshCache(slots, tokens.shape[0], max_len, enc_len, img_len)
 
 
 # ----------------------------------------------------------------------

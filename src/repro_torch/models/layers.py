@@ -7,10 +7,11 @@ in plain PyTorch: fp32 scores and softmax, KV heads expanded per chunk,
 masking with :data:`NEG_INF` — not ``scaled_dot_product_attention``, whose
 summation order differs from the reference's.
 
-On a (data, model) mesh each slot runs the ``*_local`` forms on its part
-of the ``model`` axis — its heads, its ff columns, its vocab rows — and
-returns a partial sum that the caller reduces over ``model``
-(Megatron-style tensor parallelism, which the reference gets from GSPMD).
+On a (data, model) mesh each slot runs the ``*_local`` / ``*_slots`` forms
+on its part of the ``model`` axis — its heads (GQA self- and
+cross-attention, MLA), its ff columns, its vocab rows — and returns a
+partial sum that the caller reduces over ``model`` (Megatron-style tensor
+parallelism, which the reference gets from GSPMD).
 A slot's part of a dim that does not divide is its range of a replicated
 copy (:func:`model_part`).  :func:`set_decode_shard` is the reference's
 switch for flash-decoding over a sequence-sharded cache
@@ -420,27 +421,119 @@ def _slot_kv(t: torch.Tensor, cfg: ModelConfig, j: int, nm: int) -> torch.Tensor
     return t
 
 
-def gqa_prefill_local(p, x: torch.Tensor, cfg: ModelConfig, j: int, nm: int, *,
-                      kv_chunk: int = 2048):
-    """Slot ``j``'s heads of causal self-attention over ``x`` [B, S, D]:
+def gqa_attention_local(p, x: torch.Tensor, cfg: ModelConfig, j: int, nm: int, *,
+                        causal: bool = True, kv_override=None, kv_chunk: int = 2048):
+    """Slot ``j``'s heads of :func:`gqa_attention` over ``x`` [B, S, D]:
     ``(partial, k, v)``.  ``partial`` is its share of ``out @ wo`` (sum
     over the model slots for the layer's output); k and v (post-RoPE) are
     the slot's kv heads: its piece of them, or all of them where ``wk`` is
-    replicated."""
+    replicated.  ``kv_override`` gives cross-attention's (k, v) in that
+    layout (q then takes RoPE at positions 0..S-1, k none)."""
     h0, h1, _, _ = gqa_heads(cfg, j, nm)
     wq = model_part(p["wq"], 1, cfg.num_heads, j, nm)
     wo = model_part(p["wo"], 0, cfg.num_heads, j, nm)
     q = torch.einsum("bsd,dqh->bsqh", x, wq)
-    k, v = gqa_project_kv(p, x)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if kv_override is None:
+        k, v = gqa_project_kv(p, x)
+        if cfg.use_rope:
+            k = apply_rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
     if cfg.use_rope:
-        positions = torch.arange(x.shape[1], device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
     if h1 == h0:                              # more slots than heads
         return torch.zeros_like(x), k, v
     out = flash_attention(q, _slot_kv(k, cfg, j, nm), _slot_kv(v, cfg, j, nm),
-                          causal=True, kv_chunk=kv_chunk)
+                          causal=causal, kv_chunk=kv_chunk)
     return torch.einsum("bsqh,qhd->bsd", out, wo), k, v
+
+
+def mla_attention_local(p, x: torch.Tensor, cfg: ModelConfig, j: int, nm: int, *,
+                        kv_chunk: int = 2048):
+    """Slot ``j``'s heads of :func:`mla_prefill` over ``x`` [B, S, D]:
+    ``(partial, ckv_store)``.  ``q_up``, ``kv_up`` and ``wo`` are the
+    slot's heads (its piece, or its range of a replicated copy);
+    ``q_down`` and ``kv_down`` are whole, so every slot computes the same
+    latent ``ckv_store`` [B, S, kl + dr]."""
+    h = cfg.num_heads
+    h0, h1 = local_range(h, j, nm)
+    mp = {"q_down": p["q_down"], "kv_down": p["kv_down"],
+          "q_up": model_part(p["q_up"], 1, h, j, nm),
+          "kv_up": model_part(p["kv_up"], 1, h, j, nm)}
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v, ckv = _mla_qkv(mp, x, cfg, positions)
+    kl = cfg.kv_lora_rank
+    k_roped = apply_rope(ckv[..., kl:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    ckv_store = torch.cat([ckv[..., :kl], k_roped], dim=-1)
+    if h1 == h0:                              # more slots than heads
+        return torch.zeros_like(x), ckv_store
+    out = flash_attention(q, k, v, causal=True, kv_chunk=kv_chunk)
+    return torch.einsum("bsqh,qhd->bsd", out, model_part(p["wo"], 0, h, j, nm)), ckv_store
+
+
+def mla_decode_slots(ps: Sequence, xs: Sequence[torch.Tensor], caches: Sequence[torch.Tensor],
+                     cache_len: int, cfg: ModelConfig, mesh, seq_split: bool):
+    """One-token MLA decode on every slot: ``(partials, caches')``.
+
+    ``caches`` are the slots' pieces of one layer's latent [B, S, kl + dr]:
+    its sequence part where ``seq_split`` (``cache_pspecs`` never splits
+    the latent by heads), else all of it.  The new token's latent is
+    written by the slot that holds its position; each slot then gathers
+    the latent's sequence parts (kl + dr values a token, far fewer than
+    the K/V its heads expand them to) and attends with its heads over the
+    whole cache.  ``partials`` sum over ``model``."""
+    nm = mesh.axis_size("model")
+    js = [mesh.coords(s).get("model", 0) for s in range(mesh.size)]
+    h, kl = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    s_max = caches[0].shape[1] * (nm if seq_split else 1)
+    at = min(max(int(cache_len), 0), s_max - 1)
+    qs, new = [], []
+    for p, x, c, j in zip(ps, xs, caches, js):
+        pos = torch.full((1,), cache_len, dtype=torch.int32, device=x.device)
+        q = _mla_q({"q_down": p["q_down"], "q_up": model_part(p["q_up"], 1, h, j, nm)}, x)
+        q_rope = apply_rope(q[..., dn:], pos, cfg.rope_theta)
+        qs.append(torch.cat([q[..., :dn], q_rope], dim=-1))
+        ckv_new = torch.einsum("bsd,dl->bsl", x, p["kv_down"])
+        kr_new = apply_rope(ckv_new[..., kl:][:, :, None, :], pos, cfg.rope_theta)[:, :, 0, :]
+        store = torch.cat([ckv_new[..., :kl], kr_new], dim=-1)
+        if not seq_split:
+            c = _cache_write(c, store, cache_len)
+        elif at // c.shape[1] == j:
+            c = _cache_write(c, store, at - j * c.shape[1])
+        new.append(c)
+    whole = all_gather(new, mesh, "model", 1) if seq_split else new
+    parts = []
+    for p, q, c, x, j in zip(ps, qs, whole, xs, js):
+        h0, h1 = local_range(h, j, nm)
+        if h1 == h0:
+            parts.append(torch.zeros_like(x))
+            continue
+        kv = torch.einsum("bsl,lqh->bsqh", c[..., :kl], model_part(p["kv_up"], 1, h, j, nm))
+        k_nope, v = kv[..., :dn], kv[..., dn:]
+        k_full = torch.cat([k_nope, c[..., kl:][:, :, None, :].expand(
+            k_nope.shape[:-1] + (dr,))], dim=-1)
+        valid = _decode_valid(x.shape[0], s_max, cache_len, x.device)
+        out = flash_attention(q, k_full, v, causal=False, kv_valid=valid, kv_chunk=s_max)
+        parts.append(torch.einsum("bsqh,qhd->bsd", out, model_part(p["wo"], 0, h, j, nm)))
+    return parts, new
+
+
+def cross_attention_slots(ps: Sequence, xs: Sequence[torch.Tensor], xks, xvs,
+                          cfg: ModelConfig, mesh, seq_split: bool) -> List[torch.Tensor]:
+    """Decode-time cross-attention on every slot (the encdec decoder's and
+    the vlm's gated layers): each slot's heads attend over the cached
+    ``xks`` / ``xvs`` pieces (its kv piece or every kv head, or its
+    sequence part where ``seq_split``, gathered first).  Returns the
+    partials, which sum over ``model``."""
+    nm = mesh.axis_size("model")
+    js = [mesh.coords(s).get("model", 0) for s in range(mesh.size)]
+    if seq_split:
+        xks, xvs = all_gather(xks, mesh, "model", 1), all_gather(xvs, mesh, "model", 1)
+    return [gqa_attention_local(p, x, cfg, j, nm, causal=False, kv_override=(k, v),
+                                kv_chunk=k.shape[1])[0]
+            for p, x, k, v, j in zip(ps, xs, xks, xvs, js)]
 
 
 def _flash_decode_sharded(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
@@ -536,6 +629,9 @@ def gqa_decode_slots(ps: Sequence, xs: Sequence[torch.Tensor], cks: Sequence[tor
         v_all = all_gather(new_v, mesh, "model", 1) if mode == "seq" else new_v
         outs = []
         for q, k, v, j in zip(qs, k_all, v_all, js):
+            if q.shape[2] == 0:                   # more slots than heads
+                outs.append(q)
+                continue
             valid = _decode_valid(q.shape[0], s_max, cache_len, q.device)
             outs.append(flash_attention(q, _slot_kv(k, cfg, j, nm), _slot_kv(v, cfg, j, nm),
                                         causal=False, kv_valid=valid, kv_chunk=s_max))

@@ -25,18 +25,20 @@ Conventions:
 
 ``Model(cfg, mesh=mesh)`` runs on a (data, model)
 :class:`~repro_torch.launch.mesh.DeviceMesh` from one process, as the
-reference's GSPMD does on its mesh: the parameters are a list with one tree
-of local pieces per slot (:meth:`Model.param_layout`, the reference's
+reference's GSPMD does on its mesh (a mesh without a ``model`` axis is one
+with a single model slot): the parameters are a list with one tree of local
+pieces per slot (:meth:`Model.param_layout`, the reference's
 ``param_pspecs``); each slot computes its data shard's rows with its heads,
 ff columns and vocab rows (:mod:`repro_torch.models.layers`' ``*_local``
-forms), and the partial sums meet in the collectives of
+forms; an SSM layer's SSD heads, :func:`repro_torch.models.ssm.slot_params`),
+and the partial sums meet in the collectives of
 :mod:`repro_torch.distributed.sharding`.  An ``embed``-axis piece (FSDP,
 split over ``data``) is gathered where it is used, per layer.  While
 :data:`SEQ_SHARD_ACTS` is on (the reference's default) the layer carry is
 split over the model slots along the sequence (:meth:`Model.constrain_acts`):
 gathered before attention and the MLP, reduce-scattered after; the split
-changes memory, never values.  The dense (GQA) and MoE families are split;
-the others raise ``NotImplementedError`` on a mesh.
+changes memory, never values.  Every family splits: dense (GQA or MLA),
+MoE, SSM, hybrid, encdec and vlm.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (Layout, all_gather, flat_specs, gather,
                                               pmax, psum, psum_scatter, shard)
-from repro_torch.launch.mesh import as_mesh
+from repro_torch.launch.mesh import as_mesh, with_model_axis
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -83,10 +85,6 @@ def _remat(fn, cfg: ModelConfig):
 # carry over the model slots (on by default there).  Its switch
 # (``set_seq_shard_acts``) comes with the perf tools.
 SEQ_SHARD_ACTS = True
-
-# the families split over a mesh's model axis
-MESH_FAMILIES = ("dense", "moe")
-
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE in fp32.  logits [B,S,V], labels [B,S]."""
@@ -164,14 +162,8 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None, batch_axes=("data",)):
         super().__init__()
         self.cfg = cfg
-        self.mesh = as_mesh(mesh)
+        self.mesh = with_model_axis(as_mesh(mesh))
         self.batch_axes = tuple(batch_axes)
-        if self.mesh is not None and (cfg.family not in MESH_FAMILIES or cfg.use_mla):
-            kind = "dense MLA" if cfg.use_mla else cfg.family
-            raise NotImplementedError(
-                f"{cfg.name}: the {kind} family is not split over a mesh's model "
-                f"axis yet (ROADMAP queue 1, item 6c-1b: MLA, SSM, hybrid, encdec "
-                f"and vlm); run it without a mesh")
 
     # ---------------- parameter trees ----------------
     def infos(self):
@@ -250,13 +242,15 @@ class Model(nn.Module):
 
     def constrain_kv(self, x):
         """The reference's cache-layout constraint on prefill-produced K/V
-        ([B, S, kv, hd] per slot: its kv piece, or every kv head): each
-        slot keeps what ``cache_pspecs`` gives it — its kv piece, its
-        sequence part, or all (a no-op without a mesh)."""
+        ([B, S, kv, hd] per slot: its kv piece, or every kv head) or MLA
+        latents ([B, S, kl + dr], whole on every slot): each slot keeps what
+        ``cache_pspecs`` gives it — its kv piece, its sequence part, or all
+        (a no-op without a mesh)."""
         if self.mesh is None or not isinstance(x, list):
             return x
         nm = self.mesh.axis_size("model")
-        if self.cfg.num_kv_heads % nm == 0 or x[0].shape[1] % nm:
+        kv_split = self.cfg.num_kv_heads % nm == 0 and not self.cfg.use_mla
+        if kv_split or x[0].shape[1] % nm:
             return x
         size = x[0].shape[1] // nm
         return [t.narrow(1, j * size, size) for t, j in zip(x, _SlotRun.model_coords(self))]
@@ -370,30 +364,92 @@ class Model(nn.Module):
             out.append(tree_map(lambda _: next(it), tree))
         return out
 
-    def mesh_layer(self, run: "_SlotRun", xs: List[torch.Tensor], lps: List[Any],
-                   kv_chunk: int, cache_kv: bool = False):
-        """One dense / moe layer on every slot: ``xs`` is the carry (each
-        slot's [B, S, D], or its sequence part) and ``lps`` the slots' layer
-        pieces.  Returns the new carry, and with ``cache_kv`` each slot's
-        post-RoPE (k, v) for the cache."""
-        cfg, nm = self.cfg, run.nm
-        lps = self.local_trees(lps, self.param_specs()["layers"], depth=1)
+    def mesh_mlp(self, run: "_SlotRun", xs: List[torch.Tensor], lps: List[Any],
+                 ln: str = "ln2") -> List[torch.Tensor]:
+        """``x + mlp(rmsnorm(x))`` on every slot: its ff columns of the
+        SwiGLU (or its experts' columns of the MoE), summed over ``model``."""
+        cfg = self.cfg
         h = run.full(xs)
-        att = [L.gqa_prefill_local(lp["attn"], L.rmsnorm(hh, lp["ln1"]), cfg, j, nm,
-                                   kv_chunk=kv_chunk)
-               for lp, hh, j in zip(lps, h, run.js)]
-        xs = run.add(xs, run.reduce([a[0] for a in att]))
-        h = run.full(xs)
-        hn = [L.rmsnorm(hh, lp["ln2"]) for lp, hh in zip(lps, h)]
-        if cfg.family == "moe":
+        hn = [L.rmsnorm(hh, lp[ln]) for lp, hh in zip(lps, h)]
+        if "moe" in lps[0]:
             mlp = run.scatter(self._moe_apply([lp["moe"] for lp in lps], hn))
         else:
-            mlp = run.reduce([L.swiglu_local(lp["mlp"], hh, cfg.d_ff, j, nm)
+            mlp = run.reduce([L.swiglu_local(lp["mlp"], hh, cfg.d_ff, j, run.nm)
                               for lp, hh, j in zip(lps, hn, run.js)])
-        xs = run.add(xs, mlp)
-        if cache_kv:
-            return xs, [a[1] for a in att], [a[2] for a in att]
-        return xs
+        return run.add(xs, mlp)
+
+    def mesh_layer(self, run: "_SlotRun", xs: List[torch.Tensor], lps: List[Any],
+                   kv_chunk: int, *, specs=None, depth: int = 1, causal: bool = True):
+        """One attention block — a dense (GQA or MLA) or MoE layer, the
+        hybrid's shared block, an encoder layer — on every slot: ``xs`` is
+        the carry (each slot's [B, S, D], or its sequence part) and ``lps``
+        the slots' block pieces, laid out by ``specs`` (the stacked spec
+        node, ``depth`` leading dims unstacked; the ``layers`` node by
+        default).  Returns the new carry and each slot's cache part: its
+        post-RoPE (k, v), or MLA's latent (ckv,)."""
+        cfg, nm = self.cfg, run.nm
+        specs = self.param_specs()["layers"] if specs is None else specs
+        lps = self.local_trees(lps, specs, depth)
+        h = run.full(xs)
+        hn = [L.rmsnorm(hh, lp["ln1"]) for lp, hh in zip(lps, h)]
+        if cfg.use_mla:
+            att = [L.mla_attention_local(lp["attn"], hh, cfg, j, nm, kv_chunk=kv_chunk)
+                   for lp, hh, j in zip(lps, hn, run.js)]
+        else:
+            att = [L.gqa_attention_local(lp["attn"], hh, cfg, j, nm, causal=causal,
+                                         kv_chunk=kv_chunk)
+                   for lp, hh, j in zip(lps, hn, run.js)]
+        xs = run.add(xs, run.reduce([a[0] for a in att]))
+        return self.mesh_mlp(run, xs, lps), [a[1:] for a in att]
+
+    def mesh_ssm_layer(self, run: "_SlotRun", xs: List[torch.Tensor], lps: List[Any],
+                       depth: int = 1):
+        """One SSM layer on every slot, each with its SSD heads
+        (:func:`repro_torch.models.ssm.slot_params`): the new carry and
+        each slot's decode state of its heads."""
+        lps = self.local_trees(lps, self.param_specs()["layers"], depth)
+        h = run.full(xs)
+        hn = [L.rmsnorm(hh, lp["ln"]) for lp, hh in zip(lps, h)]
+        sps = SSM.slot_params([lp["ssm"] for lp in lps], self.cfg, self.mesh)
+        y, states = SSM.ssd_slots(sps, hn, self.cfg, self.mesh)
+        return run.add(xs, run.reduce(y)), states
+
+    def mesh_dec_layer(self, run: "_SlotRun", xs: List[torch.Tensor], lps: List[Any],
+                       enc: List[torch.Tensor], kv_chunk: int):
+        """One encdec decoder layer on every slot: causal self-attention,
+        cross-attention onto the slot's rows of the encoder states, MLP,
+        each over the slot's heads.  Returns the new carry and each slot's
+        (k, v, xk, xv)."""
+        cfg, nm = self.cfg, run.nm
+        lps = self.local_trees(lps, self.param_specs()["layers"], 1)
+        h = run.full(xs)
+        att = [L.gqa_attention_local(lp["self_attn"], L.rmsnorm(hh, lp["ln1"]), cfg, j, nm,
+                                     kv_chunk=kv_chunk) for lp, hh, j in zip(lps, h, run.js)]
+        xs = run.add(xs, run.reduce([a[0] for a in att]))
+        xkv = [cross_kv(lp["cross_attn"], e) for lp, e in zip(lps, enc)]
+        h = run.full(xs)
+        c = [L.gqa_attention_local(lp["cross_attn"], L.rmsnorm(hh, lp["ln_x"]), cfg, j, nm,
+                                   causal=False, kv_override=kv, kv_chunk=kv_chunk)[0]
+             for lp, hh, kv, j in zip(lps, h, xkv, run.js)]
+        xs = run.add(xs, run.reduce(c))
+        return self.mesh_mlp(run, xs, lps), [a[1:] + kv for a, kv in zip(att, xkv)]
+
+    def mesh_cross_layer(self, run: "_SlotRun", xs: List[torch.Tensor], cps: List[Any],
+                         img: List[torch.Tensor], kv_chunk: int):
+        """The vlm's gated cross-attention layer on every slot, onto the
+        slot's rows of the image embeddings: the new carry and each slot's
+        (xk, xv)."""
+        cfg = self.cfg
+        cps = self.local_trees(cps, self.param_specs()["cross_layers"], 1)
+        xkv = [cross_kv(cp["attn"], im) for cp, im in zip(cps, img)]
+        h = run.full(xs)
+        a = run.reduce([L.gqa_attention_local(cp["attn"], L.rmsnorm(hh, cp["ln1"]), cfg, j,
+                                              run.nm, causal=False, kv_override=kv,
+                                              kv_chunk=kv_chunk)[0]
+                        for cp, hh, kv, j in zip(cps, h, xkv, run.js)])
+        xs = run.add(xs, run.map(lambda g, t: torch.tanh(g).to(t.dtype) * t,
+                                 [cp["gate"] for cp in cps], a))
+        return self.mesh_mlp(run, xs, cps), xkv
 
     def mesh_embed(self, run: "_SlotRun", params, tokens: List[torch.Tensor]):
         """Each slot's [B, S, D] embeddings: its vocab rows' lookups summed
@@ -408,14 +464,71 @@ class Model(nn.Module):
         return [L.unembed_local(e, x, self.cfg.vocab_size, j, run.nm)
                 for e, x, j in zip(emb, xs, run.js)]
 
-    def _mesh_forward(self, params, tokens: torch.Tensor, kv_chunk: int):
-        run = _SlotRun(self, tokens.shape[1])
-        toks = run.rows(tokens)
-        x, emb = self.mesh_embed(run, params, toks)
+    def _mesh_forward(self, params, batch: Dict[str, Any], kv_chunk: int,
+                      batch_axes=None, parts: Optional[List[Any]] = None):
+        """The family's layers on every slot: ``(run, each slot's logits over
+        its vocab columns)``.  With ``parts`` (a list; prefill), each layer's
+        — or group's — cache parts per slot are appended to it, and remat is
+        off."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"])
+        run = _SlotRun(self, tokens.shape[1], batch_axes)
+        x, emb = self.mesh_embed(run, params, run.rows(tokens))
         xs = run.scatter(x)
-        body = _remat(lambda c, lps: self.mesh_layer(run, c, lps, kv_chunk), self.cfg)
-        for li in range(self.cfg.num_layers):
-            xs = body(xs, [p["layers"][li] for p in params])
+        remat = (lambda f: f) if parts is not None else (lambda f: _remat(f, cfg))
+        fam = cfg.family
+
+        if fam in ("dense", "moe"):
+            body = remat(lambda c, lps: self.mesh_layer(run, c, lps, kv_chunk))
+            layers = [[p["layers"][i] for p in params] for i in range(cfg.num_layers)]
+        elif fam == "ssm":
+            body = remat(lambda c, lps: self.mesh_ssm_layer(run, c, lps))
+            layers = [[p["layers"][i] for p in params] for i in range(cfg.num_layers)]
+        elif fam == "hybrid":
+            def group(c, gps):
+                states = []
+                for i in range(cfg.hybrid_attn_every):
+                    c, st = self.mesh_ssm_layer(run, c, [g[i] for g, _ in gps], depth=2)
+                    states.append(st)
+                c, kv = self.mesh_layer(run, c, [sh for _, sh in gps], kv_chunk,
+                                        specs=self.param_specs()["shared_attn"], depth=0)
+                return c, (states, kv)
+            body = remat(group)
+            layers = [[(p["layers"][g], p["shared_attn"]) for p in params]
+                      for g in range(cfg.num_layers // cfg.hybrid_attn_every)]
+        elif fam == "encdec":
+            frames = torch.as_tensor(batch["frames"])
+            erun = _SlotRun(self, frames.shape[1], batch_axes)
+            es = erun.scatter(erun.rows(frames))
+            enc_body = remat(lambda c, lps: self.mesh_layer(
+                erun, c, lps, kv_chunk, specs=self.param_specs()["encoder"], causal=False)[0])
+            for i in range(cfg.num_encoder_layers):
+                es = enc_body(es, [p["encoder"][i] for p in params])
+            norm = self.local_trees([p["enc_norm"] for p in params],
+                                    self.param_specs()["enc_norm"])
+            enc = [L.rmsnorm(e, w) for e, w in zip(erun.full(es), norm)]
+            body = remat(lambda c, lps: self.mesh_dec_layer(run, c, lps, enc, kv_chunk))
+            layers = [[p["layers"][i] for p in params] for i in range(cfg.num_layers)]
+        elif fam == "vlm":
+            img = run.rows(torch.as_tensor(batch["image_embeds"]))
+
+            def group(c, gps):
+                kvs = []
+                for i in range(cfg.cross_attn_every - 1):
+                    c, kv = self.mesh_layer(run, c, [g[i] for g, _ in gps], kv_chunk, depth=2)
+                    kvs.append(kv)
+                c, xkv = self.mesh_cross_layer(run, c, [cp for _, cp in gps], img, kv_chunk)
+                return c, (kvs, xkv)
+            body = remat(group)
+            layers = [[(p["layers"][g], p["cross_layers"][g]) for p in params]
+                      for g in range(cfg.num_layers // cfg.cross_attn_every)]
+        else:
+            raise ValueError(fam)
+
+        for lps in layers:
+            xs, part = body(xs, lps)
+            if parts is not None:
+                parts.append(part)
         return run, self.mesh_logits(run, emb, run.full(xs))
 
     # ---------------- public entry points ----------------
@@ -425,8 +538,7 @@ class Model(nn.Module):
         on a mesh the whole logits, gathered to the lead device."""
         cfg = self.cfg
         if self.mesh is not None:
-            tokens = torch.as_tensor(batch["tokens"])
-            run, local = self._mesh_forward(params, tokens, kv_chunk)
+            run, local = self._mesh_forward(params, batch, kv_chunk)
             return run.gather_logits(local)
         batch = batch_to(batch, params["embed"]["tok"].device)
         x = L.embed(params["embed"], batch["tokens"])
@@ -450,7 +562,8 @@ class Model(nn.Module):
         the data shards' means, on the lead device."""
         if self.mesh is not None:
             tokens = torch.as_tensor(batch["tokens"])
-            run, local = self._mesh_forward(params, tokens[:, :-1], kv_chunk)
+            run, local = self._mesh_forward(params, {**batch, "tokens": tokens[:, :-1]},
+                                            kv_chunk)
             return run.vocab_parallel_ce(local, run.rows(tokens[:, 1:]))
         tokens = torch.as_tensor(batch["tokens"], device=params["embed"]["tok"].device)
         logits = self.forward(params, {**batch, "tokens": tokens[:, :-1]},
@@ -507,16 +620,21 @@ class _SlotRun:
         size = xs[0].shape[1] // self.nm
         return [x.narrow(1, j * size, size) for x, j in zip(xs, self.js)]
 
-    def add(self, xs, ys):
-        """``x + y`` per slot, once for slots that share both operands."""
+    @staticmethod
+    def map(fn, *lists):
+        """``fn`` per slot, once for slots that share every operand."""
         memo: Dict[Any, torch.Tensor] = {}
         out = []
-        for x, y in zip(xs, ys):
-            key = (id(x), id(y))
+        for args in zip(*lists):
+            key = tuple(map(id, args))
             if key not in memo:
-                memo[key] = x + y
+                memo[key] = fn(*args)
             out.append(memo[key])
         return out
+
+    def add(self, xs, ys):
+        """``x + y`` per slot, once for slots that share both operands."""
+        return self.map(torch.add, xs, ys)
 
     def gather_logits(self, local: List[torch.Tensor]) -> torch.Tensor:
         """The whole [B, S, V], on the lead device, from each slot's vocab

@@ -40,7 +40,6 @@ import torch
 
 from repro_torch.distributed.sharding import Layout
 from repro_torch.launch.mesh import DeviceMesh
-from repro_torch.train.train_step import replicate
 
 _BF16_DESCR = "<V2"
 _CHUNK = 1 << 24                    # bytes per write into the zip entry
@@ -192,14 +191,16 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
 
     Leaves keep the file's dtype and go to ``device``; with ``device=None``
     each goes to the device of ``tree_like``'s leaf.  A
-    :class:`~repro_torch.launch.mesh.DeviceMesh` gives one tree per slot
-    (:func:`~repro_torch.train.train_step.replicate`), a
-    :class:`~repro_torch.distributed.sharding.Layout` one tree of local
-    pieces per slot of its mesh: the elastic re-place, whatever the
-    writer's layout was.  ``tree_like`` holds whole leaves (``meta``
+    :class:`~repro_torch.launch.mesh.DeviceMesh` gives one whole tree per
+    slot (``Layout(mesh)``: every leaf replicated; slots of one device share
+    each leaf), a :class:`~repro_torch.distributed.sharding.Layout` one
+    tree of local pieces per slot of its mesh: the elastic re-place,
+    whatever the writer's layout was.  ``tree_like`` holds whole leaves (``meta``
     tensors will do).  A missing leaf raises ``KeyError``, a shape that
     differs from ``tree_like``'s ``ValueError``.
     """
+    if isinstance(device, DeviceMesh):
+        device = Layout(device)
     if isinstance(device, Layout):
         tree, step, extra = restore_checkpoint(ckpt_dir, tree_like, step=step,
                                                device="cpu", process_index=process_index)
@@ -218,8 +219,7 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
         if tuple(entries[key]["shape"]) != shape:
             raise ValueError(f"{key}: checkpoint shape {tuple(entries[key]['shape'])} "
                              f"!= expected {shape}")
-    mesh = device if isinstance(device, DeviceMesh) else None
-    target = mesh.lead if mesh is not None else device
+    target = device
     pieces = {}
     with np.load(d / f"shard_p{process_index}.npz") as data:
         for key, (shape, leaves) in want.items():
@@ -232,10 +232,7 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
             t = _to_tensor(arr, e["dtype"]).to(dev)
             pieces[key] = iter(t.reshape((len(leaves),) + tuple(leaves[0].shape))
                                .unbind(0))
-    tree = _rebuild(tree_like, pieces)
-    if mesh is not None:
-        tree = replicate(tree, mesh)
-    return tree, step, manifest.get("extra", {})
+    return _rebuild(tree_like, pieces), step, manifest.get("extra", {})
 
 
 def prune_checkpoints(ckpt_dir: str, keep: int = 3) -> None:

@@ -6,17 +6,10 @@ opt_state', metrics) function: autograd in place of ``jax.value_and_grad``,
 microbatches accumulated in fp32 as the reference's scan accumulates them,
 then one :class:`AdamW` update in place.
 
-:func:`shard_train_step` is the data-parallel step over a 1-D
-:class:`~repro_torch.launch.mesh.DeviceMesh`, what the reference's GSPMD
-does on its data axis: each slot takes its rows of the batch and computes
-its grads on its own device (accumulating its own microbatches), the grads
-gather to the lead device and average, one update runs there, and the
-parameters go back to every slot.  The parameters are a list with one tree
-per slot (:func:`replicate`); slots on one device share one tree.
-
-With a model on a (data, model) mesh (``Model(cfg, mesh=mesh)``),
-:func:`shard_train_step` runs the reference's sharding contract instead:
-each slot holds its pieces of the parameters and moments
+:func:`shard_train_step` is the step over a
+:class:`~repro_torch.launch.mesh.DeviceMesh`, the reference's sharding
+contract on a (data, model) mesh; a 1-D ``data`` mesh is such a mesh with
+one model slot.  Each slot holds its pieces of the parameters and moments
 (:func:`make_state_shardings`), runs forward and backward on its data rows
 and its model pieces, the grads of every piece sum over the slots that hold
 it (over ``data``, and over ``model`` where a piece is replicated there),
@@ -27,7 +20,6 @@ where the reference returns ``NamedSharding`` trees.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -35,25 +27,13 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import Layout, flat_specs, holders
-from repro_torch.launch.mesh import DeviceMesh
+from repro_torch.launch.mesh import DeviceMesh, with_model_axis
 from repro_torch.models.params import Spec, param_pspecs, tree_leaves, tree_map
 from repro_torch.train.optimizer import AdamW, AdamWState
 
 
 def _leaves(tree) -> List[torch.Tensor]:
     return list(tree_leaves(tree))
-
-
-def replicate(tree, mesh: DeviceMesh) -> List[Any]:
-    """One copy of ``tree`` per slot of ``mesh``: the first slot on each
-    device holds a copy there (``tree`` itself where it already lies on
-    that device) and later slots on the same device share it."""
-    by_dev: Dict[torch.device, Any] = {}
-    src = _leaves(tree)[0].device
-    for dev in mesh.slots:
-        if dev not in by_dev:
-            by_dev[dev] = tree if dev == src else tree_map(lambda x: x.to(dev), tree)
-    return [by_dev[d] for d in mesh.slots]
 
 
 def value_and_grad(model, params, batch: Dict[str, torch.Tensor], *,
@@ -197,61 +177,23 @@ def _mesh_train_step(model, opt: AdamW, kv_chunk: int, microbatches: int) -> Cal
 
 def shard_train_step(model, opt: AdamW, mesh: DeviceMesh, *,
                      kv_chunk: int = 2048, microbatches: int = 1) -> Callable:
-    """The step over ``mesh``.
+    """The step over ``mesh``: (params per slot, opt_state per slot, batch)
+    → (params', opt_state', metrics), every tree in the slot's layout
+    (:func:`make_state_shardings`; the state from :meth:`AdamW.init_slots`).
 
-    With a model on ``mesh`` (``Model(cfg, mesh=mesh)``, a (data, model)
-    mesh): (params per slot, opt_state per slot, batch) → (params',
-    opt_state', metrics), every tree in the slot's layout
-    (:func:`make_state_shardings`; the state from
-    :meth:`AdamW.init_slots`).  The loss is the mean over the data shards'
-    means; each slot's grads come from one backward through every slot,
-    and a piece's grad is the sum over the slots that hold it.  With a
-    model without a mesh, the data-parallel step over a 1-D ``mesh``:
-    (params per slot, opt_state, batch) → (params per slot, opt_state',
-    metrics).
-
-    ``params`` is :func:`replicate`'s list; ``opt_state`` lies on the lead
-    device.  Slot ``s`` takes rows ``[s·B/D, (s+1)·B/D)`` and accumulates
-    its ``microbatches`` of them; the loss and the grads are the means over
-    slots, which for equal slots is the reference's mean over the global
-    batch.  Every slot is launched before the first gather.
-
-    Two paths remain because only the dense and MoE families have mesh
-    forms yet: a model of another family cannot take a mesh, so its
-    data-parallel training needs the 1-D path.  Once every family is split,
-    a 1-D mesh becomes a (data, model) mesh with one model slot and the 1-D
-    path goes (ROADMAP, queue 1)."""
-    if getattr(model, "mesh", None) is not None:
-        if model.mesh is not mesh:
-            raise ValueError("shard_train_step: the model lies on another mesh")
-        return _mesh_train_step(model, opt, kv_chunk, microbatches)
-    d = mesh.size
-
-    def train_step(params: Sequence[Any], opt_state: AdamWState, batch):
-        rows = next(iter(batch.values())).shape[0]
-        if rows % d:
-            raise ValueError(f"batch of {rows} rows does not split over {d} slots")
-        n = rows // d
-        per_slot = []
-        for s, dev in enumerate(mesh.slots):
-            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                b = {k: torch.as_tensor(v)[s * n:(s + 1) * n].to(dev)
-                     for k, v in batch.items()}
-                per_slot.append(value_and_grad(model, params[s], b, kv_chunk=kv_chunk,
-                                               microbatches=microbatches))
-        lead = mesh.lead
-        loss = sum(part.to(lead) for part, _ in per_slot) / d
-        if not math.isfinite(float(loss)):
-            return params, opt_state, skipped(opt, opt_state, loss)
-        grads = [sum(g[i].to(lead, torch.float32) for _, g in per_slot) / d
-                 for i in range(len(per_slot[0][1]))]
-        del per_slot
-        lead_params, opt_state, stats = opt.update(grads, opt_state, params[0])
-        with torch.no_grad():
-            for tree in {id(t): t for t in params[1:]}.values():
-                if tree is not lead_params:
-                    for dst, src in zip(_leaves(tree), _leaves(lead_params)):
-                        dst.copy_(src)
-        return params, opt_state, {"loss": loss, **stats}
-    return train_step
-
+    A mesh without a ``model`` axis (``make_mesh(n)``) is a (data, model)
+    mesh with one model slot, and a model without a mesh is run on
+    ``mesh``: one path serves data-parallel and sharded training.  The
+    loss is the mean over the data shards' means; each slot's grads come
+    from one backward through every slot, and a piece's grad is the sum
+    over the slots that hold it.  Each microbatch splits over the data
+    shards, so for equal shards the loss and grads are the reference's
+    means over the global batch."""
+    mesh = with_model_axis(mesh)
+    if getattr(model, "mesh", None) is None:
+        from repro_torch.models.model import Model
+        model = Model(model.cfg, mesh=mesh,
+                      batch_axes=tuple(a for a in mesh.axis_names if a != "model"))
+    elif model.mesh.slots != mesh.slots or model.mesh.shape != mesh.shape:
+        raise ValueError("shard_train_step: the model lies on another mesh")
+    return _mesh_train_step(model, opt, kv_chunk, microbatches)

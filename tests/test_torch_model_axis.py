@@ -41,7 +41,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
-from test_torch_models import both_params, rel_err  # noqa: E402
+from test_torch_models import both_batches, both_params, rel_err  # noqa: E402
 
 from repro.configs import ARCHS  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
@@ -68,8 +68,9 @@ MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 SERVE_TOL = 1e-4
 GRAD_RTOL = 1e-4              # fp32 grads: |Δ| within this share of a leaf's largest
-UNSPLIT = ("minicpm3-4b", "mamba2-780m", "zamba2-2.7b", "whisper-large-v3",
-           "llama-3.2-vision-90b")
+# the families split over the model axis after dense GQA and MoE
+SPLIT = ("minicpm3-4b", "mamba2-780m", "zamba2-2.7b", "whisper-large-v3",
+         "llama-3.2-vision-90b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -97,7 +98,8 @@ def spec_items(tree, path=""):
 
 
 def cpu_mesh(shape):
-    return make_mesh(shape, ("data", "model"), ["cpu"] * int(np.prod(shape)))
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return make_mesh(shape, axes, ["cpu"] * int(np.prod(shape)))
 
 
 def worst_leaf(ref, got):
@@ -197,19 +199,15 @@ def test_production_mesh():
         assert torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8)), name
 
 
-@pytest.mark.parametrize("arch", UNSPLIT)
-def test_unsplit_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="6c-1b"):
-        TModel(t_get_config(arch, smoke=True), mesh=cpu_mesh((1, 2)))
-
-
 # ----------------------------------------------------------------------
 # serving on (data, model) slots
 # ----------------------------------------------------------------------
-def serve_run(model, params, tokens, nxt, max_len=16, kv_chunk=8):
-    """forward, prefill and two decodes: the logits of each."""
-    out = [model.forward(params, {"tokens": tokens}, kv_chunk=kv_chunk)]
-    lg, cache = prefill(model, params, {"tokens": tokens}, max_len=max_len, kv_chunk=kv_chunk)
+def serve_run(model, params, batch, nxt, max_len=16, kv_chunk=8):
+    """forward, prefill and two decodes of ``batch`` (a dict, or tokens):
+    the logits of each."""
+    batch = batch if isinstance(batch, dict) else {"tokens": batch}
+    out = [model.forward(params, batch, kv_chunk=kv_chunk)]
+    lg, cache = prefill(model, params, batch, max_len=max_len, kv_chunk=kv_chunk)
     out.append(lg)
     for i in range(nxt.shape[1]):
         lg, cache = decode_step(model, params, cache, nxt[:, i:i + 1])
@@ -237,6 +235,52 @@ def test_mesh_serving_matches_one_device(arch, shape, decode_shard):
     assert max(errs) <= SERVE_TOL, errs
     whole = cache.gather(mm.cfg, mesh)
     assert close(whole["k"], ref_cache["k"]) <= SERVE_TOL and whole["len"] == 10
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 1, 2)], ids=["1x2", "1x4", "pod2x1x2"])
+@pytest.mark.parametrize("arch", SPLIT)
+def test_split_family_serving_matches_one_device(arch, shape):
+    """MLA, SSM, hybrid, encdec and vlm on the model axis: forward, prefill
+    and two decodes against the one-device port, and the cache gathered
+    from its ``cache_pspecs`` pieces against the one-device cache; the
+    three-axis case splits rows over ``("pod", "data")`` as the multi-pod
+    production mesh does."""
+    _, _, tm, tp, _ = both_params(arch, 0, fp32=True)
+    rng = np.random.default_rng(1)
+    _, batch = both_batches(tm.cfg, rng, 2, 8, fp32=True)
+    nxt = torch.from_numpy(rng.integers(0, tm.cfg.vocab_size, (2, 2)))
+    ref, ref_cache = serve_run(tm, tp, batch, nxt)
+    mesh = cpu_mesh(shape)
+    mm = TModel(tm.cfg, mesh=mesh, batch_axes=mesh.axis_names[:-1])
+    got, cache = serve_run(mm, mm.param_layout().shard(tp), batch, nxt)
+    errs = [close(g, r) for g, r in zip(got, ref)]
+    assert max(errs) <= SERVE_TOL, errs
+    whole = cache.gather(mm.cfg, mesh)
+    assert whole.keys() == ref_cache.keys() and whole["len"] == 10
+    errs = {k: close(whole[k].float(), ref_cache[k].float()) for k in whole if k != "len"}
+    assert max(errs.values()) <= SERVE_TOL, errs
+
+
+def test_mla_heads_that_do_not_divide():
+    """minicpm3-smoke's 4 heads on 8 model slots: ``param_pspecs`` drops
+    ``heads`` (q_up, kv_up and wo stay whole on every slot), the latent
+    cache splits by sequence, and half the slots hold no head."""
+    _, _, tm, tp, _ = both_params("minicpm3-4b", 1, fp32=True)
+    mesh = cpu_mesh((1, 8))
+    mm = TModel(tm.cfg, mesh=mesh)
+    attn = mm.param_specs()["layers"]["attn"]
+    assert tuple(attn["q_up"]) == (None, None, None, None)
+    assert tuple(attn["kv_up"]) == (None, None, None, None)
+    assert tuple(attn["wo"]) == (None, None, None, "data")     # embed: FSDP
+    assert tuple(mm.param_specs()["layers"]["mlp"]["w_up"]) == (None, "data", "model")
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, 256, (2, 8)))
+    nxt = torch.from_numpy(rng.integers(0, 256, (2, 2)))
+    ref, ref_cache = serve_run(tm, tp, tokens, nxt)
+    got, cache = serve_run(mm, mm.param_layout().shard(tp), tokens, nxt)
+    assert max(close(g, r) for g, r in zip(got, ref)) <= SERVE_TOL
+    assert tuple(cache[3]["ckv"].shape) == (2, 2, 2, 24)          # [L, B, 16 / 8, kl + dr]
+    assert close(cache.gather(mm.cfg, mesh)["ckv"], ref_cache["ckv"]) <= SERVE_TOL
 
 
 def test_seq_split_carry_changes_no_value(monkeypatch):
@@ -292,6 +336,31 @@ def test_sharded_step_matches_one_device():
     assert int(state.step) == 1
     # after one step m = (1 - b1)·clip·g: each leaf's reduced grad
     worst = worst_leaf(s1.m, state.m)
+    assert worst[0] <= GRAD_RTOL, worst
+
+
+@pytest.mark.parametrize("arch", SPLIT)
+def test_split_family_step_matches_one_device(arch):
+    """The (2, 2) step of each newly split family against the one-device
+    step: AdamW's first moment leaf by leaf within ``GRAD_RTOL`` — MLA's
+    ``lora`` weights whole on every model slot, the SSM's replicated
+    ``a_log`` / ``dt_bias`` / ``d_skip`` and its x / z columns fetched
+    from other slots, the hybrid's shared block summed over its groups,
+    the vlm's fp32 gate."""
+    _, _, tm, tp, _ = both_params(arch, 2, fp32=True)
+    rng = np.random.default_rng(7)
+    _, batch = both_batches(tm.cfg, rng, 4, 16, fp32=True)
+    batch["tokens"] = torch.from_numpy(rng.integers(0, tm.cfg.vocab_size, (4, 17)))
+    opt = AdamW(lr=constant_lr(1e-3))
+    one = tree_map(torch.clone, tp)
+    _, s1, m1 = make_train_step(tm, opt, kv_chunk=8)(one, opt.init(one), batch)
+    mesh = cpu_mesh((2, 2))
+    mm = TModel(tm.cfg, mesh=mesh)
+    p_lay, o_lay = make_state_shardings(mesh, mm)
+    ps = p_lay.shard(tp)
+    _, os_, m2 = shard_train_step(mm, opt, mesh, kv_chunk=8)(ps, opt.init_slots(ps), batch)
+    assert abs(float(m2["loss"]) - float(m1["loss"])) <= 1e-5 * abs(float(m1["loss"]))
+    worst = worst_leaf(s1.m, o_lay.gather(os_).m)
     assert worst[0] <= GRAD_RTOL, worst
 
 
@@ -358,6 +427,7 @@ from repro.data.tokens import TokenPipeline
 from repro.launch.mesh import make_mesh as j_make_mesh
 from repro.models import Model as JModel
 from repro.models import decoding as JD, layers as JL
+from repro.models.params import ParamInfo as JParamInfo
 from repro.train.optimizer import AdamW as JAdamW, constant_lr as j_const
 from repro.train.train_step import shard_train_step as j_shard_step
 from repro_torch.configs import get_config as tcfg
@@ -369,36 +439,55 @@ from repro_torch.train import AdamW, constant_lr, make_state_shardings, shard_tr
 
 assert jax.device_count() == 8
 torch.set_num_threads(1)
+SPLIT = __SPLIT__
 out = {}
 as_np = lambda t: jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), t)
 cpu = lambda shape: make_mesh(shape, ("data", "model"), ["cpu"] * int(np.prod(shape)))
 fp32 = lambda t: jax.tree_util.tree_map(lambda x: x.astype(jnp.float32), t)
 
+# the reference's sharded train step in fp32 against the port's on the same
+# mesh shape: loss, AdamW's first moment leaf by leaf, embed/out
+def ref_step(arch, shape, params):
+    cfg = jcfg(arch, smoke=True)
+    batch = TokenPipeline(cfg, 8, 32, seed=1).batch_at(0)
+    jmesh = j_make_mesh(shape, ("data", "model"))
+    jopt = JAdamW(lr=j_const(1e-3))
+    shapes = jax.tree_util.tree_map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batch)
+    fn, (psh, osh, bsh) = j_shard_step(JModel(cfg, mesh=jmesh, batch_axes=("data",)), jopt,
+                                       jmesh, shapes, kv_chunk=32, donate=False)
+    jp, jst, jmet = fn(jax.device_put(params, psh), jax.device_put(jopt.init(params), osh),
+                       jax.device_put(batch, bsh))
+    tm = TModel(tcfg(arch, smoke=True), mesh=cpu(shape))
+    p_lay, o_lay = make_state_shardings(tm.mesh, tm)
+    opt = AdamW(lr=constant_lr(1e-3))
+    port = lambda t: params_from_numpy(as_np(t), tm.infos(), device="cpu", dtype=torch.float32)
+    ps = p_lay.shard(port(params))
+    ps, os_, met = shard_train_step(tm, opt, tm.mesh, kv_chunk=32)(
+        ps, opt.init_slots(ps), {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
+    ref_m, got_m = named_params(port(jst.m)), named_params(o_lay.gather(os_).m)
+    m_rel = {n: float(np.abs(ref_m[n].numpy() - got_m[n].numpy()).max()
+                      / max(float(np.abs(ref_m[n].numpy()).max()), 1e-30)) for n in ref_m}
+    return {"loss_ref": float(jmet["loss"]), "loss": float(met["loss"]),
+            "m_rel": max(m_rel.values()), "m_worst": max(m_rel, key=m_rel.get),
+            "w_delta": float(np.abs(np.asarray(jp["embed"]["out"], np.float32)
+                                    - p_lay.gather(ps)["embed"]["out"].float().numpy()).max())}
+
+
 # the reference's (4, 2) sharded train step, fp32 parameters
 cfg = jcfg("internlm2-1.8b", smoke=True)
-batch = TokenPipeline(cfg, 8, 32, seed=1).batch_at(0)
-params = fp32(JModel(cfg).init(jax.random.PRNGKey(0)))
-jmesh = j_make_mesh((4, 2), ("data", "model"))
-jopt = JAdamW(lr=j_const(1e-3))
-shapes = jax.tree_util.tree_map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batch)
-fn, (psh, osh, bsh) = j_shard_step(JModel(cfg, mesh=jmesh, batch_axes=("data",)), jopt,
-                                   jmesh, shapes, kv_chunk=32, donate=False)
-jp, jst, jmet = fn(jax.device_put(params, psh), jax.device_put(jopt.init(params), osh),
-                   jax.device_put(batch, bsh))
-tm = TModel(tcfg("internlm2-1.8b", smoke=True), mesh=cpu((4, 2)))
-p_lay, o_lay = make_state_shardings(tm.mesh, tm)
-opt = AdamW(lr=constant_lr(1e-3))
-port = lambda t: params_from_numpy(as_np(t), tm.infos(), device="cpu", dtype=torch.float32)
-ps = p_lay.shard(port(params))
-ps, os_, met = shard_train_step(tm, opt, tm.mesh, kv_chunk=32)(
-    ps, opt.init_slots(ps), {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
-ref_m, got_m = named_params(port(jst.m)), named_params(o_lay.gather(os_).m)
-m_rel = {n: float(np.abs(ref_m[n].numpy() - got_m[n].numpy()).max()
-                  / max(float(np.abs(ref_m[n].numpy()).max()), 1e-30)) for n in ref_m}
-out["step"] = {"loss_ref": float(jmet["loss"]), "loss": float(met["loss"]),
-               "m_rel": max(m_rel.values()), "m_worst": max(m_rel, key=m_rel.get),
-               "w_delta": float(np.abs(np.asarray(jp["embed"]["out"], np.float32)
-                                       - p_lay.gather(ps)["embed"]["out"].float().numpy()).max())}
+out["step"] = ref_step("internlm2-1.8b", (4, 2), fp32(JModel(cfg).init(jax.random.PRNGKey(0))))
+
+
+# fp32 parameters drawn with numpy (faster than the reference's init): every
+# leaf random, the zeros / ones ones (a_log, dt_bias, d_skip, norms, the vlm
+# gate) about their init value
+def draw(infos, rng):
+    if isinstance(infos, JParamInfo):
+        x = rng.standard_normal(infos.shape).astype(np.float32)
+        return jnp.asarray({"ones": 1.0 + 0.1 * x, "zeros": 0.5 * x}.get(infos.init,
+                                                                           x * infos.scale))
+    return {k: draw(v, rng) for k, v in infos.items()}
+
 
 # olmoe's shard_map MoE forward on (2, 2), fp32
 cfg = jcfg("olmoe-1b-7b", smoke=True)
@@ -440,13 +529,54 @@ for i in range(2):
     gots.append(lg.numpy())
 TL.set_decode_shard(None)
 out["decode"] = [float(np.max(np.abs(a - b) / (1 + np.abs(b)))) for a, b in zip(gots, refs)]
+
+# the newly split families' forward, prefill and two decodes on (1, 4), fp32,
+# through the reference's sharded model
+out["families"] = {}
+for i, arch in enumerate(SPLIT):
+    cfg = jcfg(arch, smoke=True)
+    jm = JModel(cfg, mesh=j_make_mesh((1, 4), ("data", "model")))
+    rng = np.random.default_rng(4 + i)
+    params = draw(JModel(cfg).infos(), rng)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)}
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        b["image_embeds"] = rng.standard_normal(
+            (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    nxt = rng.integers(0, cfg.vocab_size, (2, 2)).astype(np.int32)
+
+    refs = [np.asarray(jax.jit(lambda p, bb: jm.forward(p, bb, kv_chunk=8))(params, b))]
+    lg, c = jax.jit(lambda p, bb: JD.prefill(jm, p, bb, max_len=16, kv_chunk=8))(params, b)
+    refs.append(np.asarray(lg))
+    dec = jax.jit(lambda p, cc, t: JD.decode_step(jm, p, cc, t))
+    for t in range(2):
+        lg, c = dec(params, c, nxt[:, t:t + 1])
+        refs.append(np.asarray(lg))
+    tm = TModel(tcfg(arch, smoke=True), mesh=cpu((1, 4)))
+    ps = tm.param_layout().shard(params_from_numpy(as_np(params), tm.infos(), device="cpu",
+                                                   dtype=torch.float32))
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    gots = [tm.forward(ps, tb, kv_chunk=8).numpy()]
+    lg, c = prefill(tm, ps, tb, max_len=16, kv_chunk=8)
+    gots.append(lg.numpy())
+    for t in range(2):
+        lg, c = decode_step(tm, ps, c, torch.from_numpy(nxt[:, t:t + 1]))
+        gots.append(lg.numpy())
+    out["families"][arch] = [float(np.max(np.abs(a - r) / (1 + np.abs(r))))
+                             for a, r in zip(gots, refs)]
+
+# the reference's fp32 (2, 2) sharded step for mamba2: SSD heads whose
+# weights lie on other slots
+out["ssm_step"] = ref_step("mamba2-780m", (2, 2), draw(
+    JModel(jcfg("mamba2-780m", smoke=True)).infos(), np.random.default_rng(9)))
 print(json.dumps(out))
 """
 
 
 def test_port_matches_the_reference_sharded_runs():
     code = ('import os\nos.environ["XLA_FLAGS"] = '
-            '"--xla_force_host_platform_device_count=8"\n' + REFERENCE_RUNS)
+            '"--xla_force_host_platform_device_count=8"\n' + REFERENCE_RUNS.replace("__SPLIT__", repr(SPLIT)))
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -458,3 +588,8 @@ def test_port_matches_the_reference_sharded_runs():
     assert out["step"]["w_delta"] < 5e-2, out
     assert out["olmoe"] <= SERVE_TOL, out
     assert max(out["decode"]) <= SERVE_TOL, out
+    assert sorted(out["families"]) == sorted(SPLIT), out
+    assert max(max(v) for v in out["families"].values()) <= SERVE_TOL, out
+    assert out["ssm_step"]["m_rel"] <= GRAD_RTOL, out
+    assert abs(out["ssm_step"]["loss"] - out["ssm_step"]["loss_ref"]) < 5e-2, out
+    assert out["ssm_step"]["w_delta"] < 5e-2, out

@@ -43,8 +43,9 @@ from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.launch import make_mesh  # noqa: E402
 from repro_torch.models import Model as TModel, named_params, params_from_numpy  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
-from repro_torch.train import (AdamW, constant_lr, make_train_step, replicate,  # noqa: E402
-                               shard_train_step, value_and_grad, warmup_cosine)
+from repro_torch.train import (AdamW, constant_lr, make_state_shardings,  # noqa: E402
+                               make_train_step, shard_train_step, value_and_grad,
+                               warmup_cosine)
 
 B, S, KV_CHUNK = 2, 16, 8
 GRAD_RTOL = 1e-4
@@ -232,9 +233,10 @@ def test_train_step_matches_reference(arch, microbatches):
 
 @pytest.mark.parametrize("microbatches", [1, 2])
 def test_shard_train_step_matches_one_device(microbatches):
-    """Two slots of the CPU, each on its 4 of 8 rows (in ``microbatches``
-    of its own), against one device on all 8 (in ``2 × microbatches``);
-    the slots share the lead's tree and stay equal to it."""
+    """Two slots of the CPU (a 1-D mesh: one model slot), each microbatch
+    of 8 / ``microbatches`` rows split over them, against one device on
+    all 8 (in ``2 × microbatches``); the state laid out by the mesh's
+    layout, each slot's pieces updated on its own."""
     _, _, tm, tp, _ = both_params("internlm2-1.8b", 0, fp32=True)
     _, tb = train_batches(tm.cfg, 2, rows=8)
     opt = AdamW(lr=constant_lr(LR))
@@ -242,11 +244,12 @@ def test_shard_train_step_matches_one_device(microbatches):
     one, _, m1 = make_train_step(tm, opt, kv_chunk=KV_CHUNK,
                                  microbatches=2 * microbatches)(one, opt.init(one), tb)
     mesh = make_mesh(2, ["cpu"] * 2)
-    slots = replicate(tp, mesh)
-    assert slots[0] is slots[1] is tp
-    slots, state, m2 = shard_train_step(tm, opt, mesh, kv_chunk=KV_CHUNK,
-                                        microbatches=microbatches)(slots, opt.init(tp), tb)
+    p_lay, o_lay = make_state_shardings(mesh, tm)
+    slots = p_lay.shard(tp)
+    slots, states, m2 = shard_train_step(tm, opt, mesh, kv_chunk=KV_CHUNK,
+                                         microbatches=microbatches)(
+        slots, opt.init_slots(slots), tb)
     assert abs(float(m2["loss"]) - float(m1["loss"])) <= 1e-6 * float(m1["loss"])
-    assert int(state.step) == 1
-    a, b = named_params(one), named_params(slots[1])
+    assert int(o_lay.gather(states).step) == 1
+    a, b = named_params(one), named_params(p_lay.gather(slots))
     assert max(float((a[n] - b[n]).abs().max()) for n in a) <= STEP_ATOL

@@ -196,7 +196,7 @@ def test_restore_onto_every_slot_of_a_mesh(tmp_path):
     t_ckpt.save_checkpoint(tmp_path, 2, tree)
     mesh = make_mesh(3, ["cpu"] * 3)
     slots, step, _ = t_ckpt.restore_checkpoint(tmp_path, tree, device=mesh)
-    assert step == 2 and len(slots) == 3 and slots[0] is slots[1] is slots[2]
+    assert step == 2 and len(slots) == 3 and slots[0]["b"] is slots[1]["b"] is slots[2]["b"]
     assert all(torch.equal(a["w"], b["w"]) for a, b in zip(slots[0]["layers"], tree["layers"]))
     one, _, _ = t_ckpt.restore_checkpoint(tmp_path, tree, device="cpu")
     assert torch.equal(one["b"], tree["b"])
@@ -438,8 +438,8 @@ def test_train_without_a_card_raises(monkeypatch):
 def test_non_finite_loss_leaves_the_state(monkeypatch):
     """A step whose loss is NaN applies no update: parameters, moments and
     the step count stay byte-equal, on one device and on two slots."""
-    from repro_torch.train import (AdamW, constant_lr, make_train_step, replicate,
-                                   shard_train_step)
+    from repro_torch.train import (AdamW, constant_lr, make_state_shardings,
+                                   make_train_step, shard_train_step)
     tm = TModel(t_get_config(ARCH, smoke=True))
     opt = AdamW(lr=constant_lr(1e-3))
     batch = {"tokens": torch.randint(0, 256, (4, 17), generator=torch.Generator().manual_seed(0))}
@@ -456,9 +456,11 @@ def test_non_finite_loss_leaves_the_state(monkeypatch):
     assert all(torch.equal(a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
                for a, b in zip(before, snap({"p": p2, "s": s2})))
     mesh = make_mesh(2, ["cpu"] * 2)
-    slots = replicate(params, mesh)
-    p3, s3, _ = shard_train_step(tm, opt, mesh, kv_chunk=16)(slots, state, batch)
-    assert all(torch.equal(a, b) for a, b in zip(before, snap({"p": p3[0], "s": s3})))
+    p_lay, o_lay = make_state_shardings(mesh, tm)
+    slots, states = p_lay.shard(params), o_lay.shard(state)
+    p3, s3, _ = shard_train_step(tm, opt, mesh, kv_chunk=16)(slots, states, batch)
+    assert all(torch.equal(a, b) for a, b in zip(before, snap({"p": p_lay.gather(p3),
+                                                               "s": o_lay.gather(s3)})))
 
 
 def t_params_leaves(tree):
