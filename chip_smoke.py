@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Drives the port's nine paths once on one NVIDIA card, the first six at
+Drives the port's eleven paths once on one NVIDIA card, the first six at
 the paper's configuration (``ClimberConfig()``: n=256, w=16, r=200, m=10,
 c=3000, K=500), with every kernel's launch count zeroed just before each
 path and read just after it:
@@ -193,6 +193,33 @@ path and read just after it:
    the loss equal to ``cross_entropy(Model.forward(...))`` of the same
    parameters (within ``MOE_LOSS_RTOL`` for the MoE).  ``--lm-smoke``
    shrinks the path to the smoke configs, 64 tokens and 6 steps.
+10. **dryrun**, the dry-run tools (``repro_torch.launch.dryrun`` /
+    ``climber_dryrun``): (a) ``run_cell`` of internlm2-1.8b × ``train_4k``
+    and × ``decode_32k`` and the CLIMBER build and query steps (128M × 256,
+    50 queries), each counted on ``make_production_mesh(devices=["meta"] *
+    256)`` with nothing allocated: one line per cell with its compute,
+    memory and collective seconds against the H100's rates, bottleneck,
+    roofline fraction and the host seconds of the count; (b) internlm2-1.8b
+    decode of 8 rows over a 4,096-token cache on one device, counted on
+    ``meta`` and then run on the card: the counted argument bytes must
+    equal the allocator's requested bytes, and its growth of
+    ``memory_allocated()`` must lie between them rounded to 512 B a tensor
+    and that plus 1 MiB a tensor of 1 MiB or more (a block whose tail is
+    that small is not split); the tick ms against the counted bound;
+    (c) one slot's share of (16, 16) on the card: 128M / 256 = 500,000
+    random walks through the build step (``paa``, ``pivot_rank``,
+    assignment, trie routing on the synthetic skeleton) and ``refine_topk``
+    of 50 queries × 16 whole partitions of the slot's 166 partitions of
+    3,000 × 256, each timed with CUDA events against the counted per-slot
+    bound; after its counts are read, ``paa``, ``pivot_rank`` and
+    ``refine_topk`` are held against their plain versions at these shapes.
+11. **perf**, the reference's perf switches at internlm2-1.8b's full
+    width: the train step of the train path's shape (seq 4,096, batch 8 in
+    4 microbatches, remat) with ``set_flash_bf16`` off and on, two steps
+    each from the same weights: step s, the plain attention's part of it
+    and peak GB, losses within 5e-2 (the reference's rule); then 8 ticks of
+    decode at 8 slots over a 512-token cache with
+    ``set_cache_update_masked`` off and on: logits bit-equal, ms a tick.
 
 Then, off the paths, it holds each CUDA kernel against its plain PyTorch
 version on the same inputs at the paths' shapes, times both with CUDA
@@ -244,6 +271,12 @@ FP32_FLOP_PER_S = 67e12
 def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def work_bound(work):
+    """``bound_ms`` of a kernel's work function's ``(flops, nbytes)``: the
+    work the dry-run counts on ``meta`` for the same call."""
+    return bound_ms(work.nbytes, work.flops)
 
 
 def say(*parts) -> None:
@@ -400,7 +433,7 @@ def paa_row(x, w, iters=5, warmup=2, tick=False):
     is the host's launch cost, so the row adds the profiler's device time."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paa_kernel import paa_plain, paa_sequential
+    from repro_torch.kernels.paa_kernel import paa_plain, paa_sequential, paa_work
     b, n = x.shape
     got = ops.paa(x, w)
     err = float((got - paa_plain(x, w)).abs().max())
@@ -412,7 +445,7 @@ def paa_row(x, w, iters=5, warmup=2, tick=False):
     if differ:
         raise SystemExit(f"paa [{b}, {n}]: {differ} of {rows.numel()} sampled rows "
                          f"differ from paa_sequential's bits")
-    bms, bby = bound_ms(b * n * 4 + b * w * 4, b * n)
+    bms, bby = work_bound(paa_work(b, n, w))
     return {"max_abs_err": err, "bit_equal_rows": int(rows.numel()),
             "ms": cuda_ms(lambda: ops.paa(x, w), iters, warmup),
             "plain_ms": cuda_ms(lambda: paa_plain(x, w), iters, warmup), "bound_ms": bms,
@@ -429,10 +462,11 @@ def pivot_rank_row(z, piv, m, iters=5, warmup=2, plain_iters=5, plain_warmup=2):
     order is not ``lax.top_k``'s)."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain
+    from repro_torch.kernels.pivot_rank import (pivot_distances_plain, pivot_rank_plain,
+                                                pivot_rank_work)
     (b, w), r = z.shape, piv.shape[0]
     bad, gap = pivot_rank_check(z, piv, m)
-    bms, bby = bound_ms(b * w * 4 + r * w * 4 + b * m * 4, b * r * (2 * w + 3))
+    bms, bby = work_bound(pivot_rank_work(b, w, r, m))
     return {"rows_differing": bad, "max_abs_err": gap,
             "ms": cuda_ms(lambda: ops.pivot_rank(z, piv, m), iters, warmup),
             "device_ms": device_ms(lambda: ops.pivot_rank(z, piv, m), "pivot_rank"),
@@ -451,10 +485,10 @@ def pairwise_l2_row(q, x, label):
     """``pairwise_l2`` on ``q`` × ``x`` against its plain version
     (:func:`l2_check`)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.l2 import pairwise_l2_plain
+    from repro_torch.kernels.l2 import pairwise_l2_plain, pairwise_l2_work
     (nq, n), c = q.shape, x.shape[0]
     err = l2_check(label, q, x)
-    bms, bby = bound_ms(4 * (c * n + nq * n + nq * c), 2 * nq * c * n)
+    bms, bby = work_bound(pairwise_l2_work(nq, c, n))
     return {"max_abs_err": err, "ms": cuda_ms(lambda: ops.pairwise_l2(q, x)),
             "plain_ms": cuda_ms(lambda: pairwise_l2_plain(q, x)),
             "bound_ms": bms, "bound_by": bby,
@@ -466,13 +500,11 @@ def pairwise_l2_row(q, x, label):
 
 def refine_bound(work, nq, mp, n, k):
     """``refine_topk``'s bound on a partition-sorted plan of ``nq`` queries
-    and ``mp`` entries, from :func:`refine_work`'s counts: each distinct
-    kept record's row and norm and each live slot's tags read once, the
-    queries and the plan read, (d², gid) written; 2n + 3 operations a kept
-    (query, record) pair."""
-    return bound_ms(work["unique_kept_records"] * (4 * n + 4) + work["live_slots"] * 8
-                    + nq * n * 4 + 3 * nq * mp * 4 + nq * k * 8,
-                    work["kept_pairs"] * (2 * n + 3))
+    and ``mp`` entries, from :func:`refine_work`'s counts
+    (``refine_topk_work``, which the dry-run counts too)."""
+    from repro_torch.kernels.refine_topk import refine_topk_work
+    return work_bound(refine_topk_work(work["kept_pairs"], work["unique_kept_records"],
+                                       work["live_slots"], nq, mp, n, k))
 
 
 def plain_exact_knn(queries, data, k, chunk=SCAN_CHUNK):
@@ -2772,6 +2804,330 @@ def train_path(args, dev, report):
     return launches
 
 
+DRYRUN_ARCH = "internlm2-1.8b"
+DRYRUN_CELLS = ("train_4k", "decode_32k")       # (a), counted on the (16, 16) meta slots
+DRYRUN_KERNELS = ("paa", "pivot_rank", "refine_topk")
+DRYRUN_TICK = (8, 4096)                          # (b): rows, cache tokens, one device
+ALLOC_ROUND = 512                                # the caching allocator's rounding
+ALLOC_SLACK = 1 << 20                            # its largest unsplit tail of a block
+DRYRUN_SLOTS = 256                               # (c): one slot of (16, 16)
+
+
+def requested_bytes(dev) -> int:
+    """The caching allocator's live requested bytes (unrounded)."""
+    import torch
+    return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+
+
+def counted_bound_ms(r) -> float:
+    """The larger of a dry-run result's compute, memory and collective
+    terms, in ms: the least time its counted per-device work could take."""
+    return max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+
+
+def dryrun_path(args, dev, report):
+    """The dry-run tools (module docstring, item 10): (a) counts on (16, 16)
+    ``meta`` slots, (b) one counted decode tick run whole on the card with
+    its argument bytes held to the allocator, (c) one slot's share of the
+    CLIMBER build and query steps through the kernels, timed against its
+    counted bound and held against the plain versions.  Every hard check
+    raises.  Returns the path's launch counts, read after (c)'s timed runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset, make_queries
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.refine_topk import refine_topk_plain, refine_topk_work, refine_work
+    from repro_torch.launch import climber_dryrun as CD
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import Model, count_params, decode_step, init_cache
+    from repro_torch.utils import roofline as RL
+    from repro_torch.utils.config import ShapeConfig
+
+    smoke = args.lm_smoke
+    out = report.setdefault("dryrun", {})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+
+    # ---- (a) counts on the (16, 16) meta slots: nothing allocated ----------
+    cells = out["cells"] = {}
+    for shape in DRYRUN_CELLS:
+        t = time.perf_counter()
+        r = DR.run_cell(DRYRUN_ARCH, shape, multi_pod=False, verbose=False)
+        if r.get("status") != "ok":
+            raise SystemExit(f"dryrun: {DRYRUN_ARCH} x {shape} did not count: {r}")
+        cells[f"{DRYRUN_ARCH}:{shape}"] = dict(r, host_s=time.perf_counter() - t)
+    for kind in ("build", "query"):
+        t = time.perf_counter()
+        r = CD.run(kind, False)
+        cells[f"climber:{kind}"] = dict(r, host_s=time.perf_counter() - t)
+    for name, r in cells.items():
+        say(f"dryrun[{name} x 16x16 meta]: compute {r['compute_s']:.6g} s, memory "
+            f"{r['memory_s']:.6g} s, collective {r['collective_s']:.6g} s, bottleneck "
+            f"{r['bottleneck']}, roofline {r['roofline_fraction']:.4g}, args "
+            f"{r['memory']['argument_bytes'] / 2**30:.3f} GiB/slot, host {r['host_s']:.1f} s")
+
+    # ---- (b) one decode tick a card runs whole, counted then run ----------
+    cfg = get_config(DRYRUN_ARCH, smoke=smoke)
+    rows, ctx = (8, 256) if smoke else DRYRUN_TICK
+    tick = ShapeConfig("decode_tick", ctx, rows, "decode")
+    t = time.perf_counter()
+    counter, _ = DR.lower_cell(cfg, tick, None, 2048)
+    count_s = time.perf_counter() - t
+    sizes = DR.argument_bytes(cfg, tick, None)
+    model = Model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev), requested_bytes(dev)
+    params = model.init(gen, dev)
+    cache = init_cache(cfg, rows, ctx, device=dev)
+    token = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - before[0]
+    requested = requested_bytes(dev) - before[1]
+    rounded = sum(-(-b // ALLOC_ROUND) * ALLOC_ROUND for b in sizes)
+    # a block whose segment's tail is 1 MiB or less is not split: the
+    # allocator then holds up to 1 MiB more than the rounded request
+    slack = sum(ALLOC_SLACK for b in sizes if b >= ALLOC_SLACK)
+    if requested != sum(sizes) or not rounded <= grown <= rounded + slack:
+        raise SystemExit(f"dryrun: the counted argument bytes ({sum(sizes)}, {rounded} "
+                         f"rounded to {ALLOC_ROUND} B a tensor) differ from the "
+                         f"allocator's requested bytes {requested} or its growth {grown}")
+    cache["len"] = ctx - 1
+    with torch.no_grad():
+        tick_ms = cuda_ms(lambda: decode_step(model, params, cache, token), iters=5)
+    rep = RL.RooflineReport(
+        arch=cfg.name, shape=f"decode {rows} x {ctx}", mesh="1",
+        flops_per_device=counter.flops, bytes_per_device=counter.bytes,
+        coll_bytes_per_device=0.0, coll_breakdown={},
+        model_bytes_per_device=DR.model_bytes(cfg, tick, count_params(model.infos())))
+    out["tick"] = {"rows": rows, "cache_tokens": ctx, "argument_bytes": sum(sizes),
+                   "requested_bytes": requested, "argument_bytes_rounded": rounded,
+                   "allocator_growth": grown,
+                   "tensors": len(sizes), "count_s": count_s, "tick_ms": tick_ms,
+                   "counted_bound_ms": rep.bound_s * 1e3, "bottleneck": rep.bottleneck,
+                   "weights_cache_read_ms": rep.model_bytes_per_device / RL.HBM_BW * 1e3,
+                   "counted_flops": counter.flops, "counted_bytes": counter.bytes,
+                   "counted_peak_bytes": counter.peak_bytes}
+    say(f"dryrun tick[{cfg.name}, {rows} rows x {ctx}-token cache, one card]: argument "
+        f"bytes {sum(sizes)} ({len(sizes)} tensors) == the allocator's requested bytes "
+        f"{requested}; its growth {grown} against {rounded} rounded to {ALLOC_ROUND} B a "
+        f"tensor; " + json.dumps({a: (round(b, 4) if isinstance(b, float) else b)
+                                   for a, b in out["tick"].items()}))
+    del params, cache, token
+    torch.cuda.empty_cache()
+
+    # ---- (c) one slot's share of the CLIMBER steps, through the kernels ----
+    ccfg = CD.CFG
+    n, w, m, k, cap = (ccfg.series_len, ccfg.paa_segments, ccfg.prefix_len, ccfg.k,
+                       ccfg.capacity)
+    per = 20_000 if smoke else CD.N_SERIES // DRYRUN_SLOTS
+    g = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    x = make_dataset("randomwalk", per, n, generator=g)
+    skeleton = CD.synthetic_skeleton(ccfg, device=dev)
+    pivots = torch.randn((ccfg.num_pivots, w), generator=g, device=dev)
+    build = lambda: CD.build_step([x], pivots, skeleton, ccfg)
+    part, dfs = build()[0]
+    if not (part.shape == (per,) and bool((part >= 0).all())
+            and bool((part < skeleton[0].num_partitions).all())):
+        raise SystemExit("dryrun: the slot's build routed a record outside the skeleton")
+    build_ms = cuda_ms(build, iters=3, warmup=1)
+    # the slot's store: its ~166 partitions of cap rows, every record live
+    p_slot = (CD.N_SERIES // cap) // DRYRUN_SLOTS if not smoke else per // cap
+    store = x[:p_slot * cap].reshape(p_slot, cap, n).contiguous()
+    norms = (store * store).sum(-1)
+    rec_dfs = torch.zeros((p_slot, cap), dtype=torch.int32, device=dev)
+    rec_gid = torch.arange(p_slot * cap, dtype=torch.int32, device=dev).reshape(p_slot, cap)
+    q = make_queries(x, CD.N_QUERIES, generator=g).contiguous()
+    # each query's plan: CD.PLAN_SLOTS distinct partitions of the slot,
+    # sorted, whole (the meta count's rule: every entry a live partition)
+    width = min(CD.PLAN_SLOTS, p_slot)
+    sp = torch.sort(torch.argsort(torch.rand((q.shape[0], p_slot), generator=g,
+                                             device=dev), dim=-1)[:, :width],
+                    dim=-1).values.to(torch.int32).contiguous()
+    lo = torch.zeros_like(sp)
+    hi = torch.ones_like(sp)
+    refine = lambda: ops.refine_topk(store, norms, rec_dfs, rec_gid, q, sp, lo, hi, k)
+    query_ms = cuda_ms(refine, iters=5)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    missing = [a for a in DRYRUN_KERNELS if launches[a] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the dryrun path: {missing}")
+
+    rows_q = q.shape[0] * width * cap
+    meta_work = refine_topk_work(rows_q, rows_q, rows_q, q.shape[0], width, n, k)
+    real = refine_work(rec_dfs, rec_gid, sp, lo, hi)
+    share = {"records": per, "partitions": p_slot, "queries": q.shape[0], "plan_width": width,
+             "build_ms": build_ms,
+             "build_counted_bound_ms": counted_bound_ms(cells["climber:build"]),
+             "query_refine_ms": query_ms,
+             "query_counted_bound_ms": counted_bound_ms(cells["climber:query"]),
+             "refine_meta_rule_bound_ms": work_bound(meta_work)[0],
+             "refine_kept_records_bound_ms": refine_bound(real, q.shape[0], width, n, k)[0],
+             "unique_kept_records": real["unique_kept_records"],
+             "store_gb": store.numel() * 4 / 1e9}
+    # the kernels against their plain versions at this path's shapes
+    kc = {"paa": paa_row(x, w, iters=3, warmup=1)}
+    z = ops.paa(x, w)
+    kc["pivot_rank"] = pivot_rank_row(z, pivots, m, iters=3, warmup=1, plain_iters=2,
+                                      plain_warmup=1)
+    d2_k, g_k = refine()
+    d2_p, g_p = refine_topk_plain(store, norms, rec_dfs, rec_gid, q, sp, lo, hi, k)
+    tol = 1e-5 * ((q * q).sum(-1, keepdim=True) + float(norms.max()))
+    err, differ = assert_same_topk("refine_topk [dryrun slot]", d2_k, g_k, d2_p, g_p, tol)
+    bms, bby = refine_bound(real, q.shape[0], width, n, k)
+    kc["refine_topk"] = {"max_abs_err": err, "gid_queries_differ": differ, "ms": query_ms,
+                         "plain_ms": cuda_ms(lambda: refine_topk_plain(
+                             store, norms, rec_dfs, rec_gid, q, sp, lo, hi, k), iters=2,
+                             warmup=1),
+                         "bound_ms": bms, "bound_by": bby, **real,
+                         "shape": f"Q={q.shape[0]} MP={width} P={p_slot} cap={cap} n={n} "
+                                  f"k={k}"}
+    del d2_p, g_p, z
+    out["slot"] = share
+    out["kernels"] = kc
+    out["seconds"] = time.perf_counter() - t_path
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say(f"dryrun slot[1 of {DRYRUN_SLOTS}: {per} records, {p_slot} partitions, "
+        f"{q.shape[0]} queries]: " + json.dumps(
+            {a: (round(b, 4) if isinstance(b, float) else b) for a, b in share.items()}))
+    for name, row in kc.items():
+        say(f"{name} [dryrun slot]: " + json.dumps(
+            {a: (round(b, 5) if isinstance(b, float) else b) for a, b in row.items()}))
+    say(f"dryrun-path launches: {launches} ({out['seconds']:.1f} s, peak device memory "
+        f"{out['peak_memory_gb']:.1f} GB)")
+    del x, store, norms, rec_dfs, rec_gid, skeleton
+    torch.cuda.empty_cache()
+    return launches
+
+
+PERF_ARCH = TRAIN_ARCH
+PERF_LOSS_TOL = 5e-2                    # bf16 flash against fp32: the reference's rule
+PERF_DECODE = (8, 256, 512, 8)          # rows, prompt tokens, cache tokens, ticks
+
+
+def perf_path(args, dev, report):
+    """The reference's perf switches on the card (module docstring, item
+    11): the train step with ``set_flash_bf16`` off and on, and decode with
+    ``set_cache_update_masked`` off and on.  Every hard check raises;
+    every switch is left off.  Returns the path's launch counts (it runs
+    none of the CLIMBER kernels)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, decode_step, prefill
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import flash_attention
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import AdamW, constant_lr, make_train_step
+
+    smoke = args.lm_smoke
+    seq = 64 if smoke else TRAIN_SEQ
+    out = report.setdefault("perf", {"arch": PERF_ARCH, "seq": seq, "batch": TRAIN_BATCH,
+                                     "microbatches": TRAIN_MICRO, "remat": "dots"})
+    cfg = get_config(PERF_ARCH, smoke=smoke)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t_path = time.perf_counter()
+    model = Model(cfg)
+    init = model.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
+    opt = AdamW(lr=constant_lr(TRAIN_LR))
+    step = make_train_step(model, opt, kv_chunk=TRAIN_KV_CHUNK, microbatches=TRAIN_MICRO)
+    batch = TokenPipeline(cfg, TRAIN_BATCH, seq, seed=args.seed, mode="periodic",
+                          device=dev).batch_at(0)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    shape = lambda h: (TRAIN_BATCH // TRAIN_MICRO, seq, h, cfg.head_dim)
+    q, k, v = (torch.randn(shape(h), generator=g, device=dev).bfloat16().requires_grad_()
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+
+    def attention():
+        # one layer's flash at the step's shapes: forward twice (remat
+        # recomputes it) and backward once
+        with torch.no_grad():
+            flash_attention(q, k, v, causal=True, kv_chunk=TRAIN_KV_CHUNK)
+        o = flash_attention(q, k, v, causal=True, kv_chunk=TRAIN_KV_CHUNK)
+        torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+
+    runs = {}
+    try:
+        for flag in (False, True):
+            L.set_flash_bf16(flag)
+            p = tree_map(torch.clone, init)
+            state = opt.init(p)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (_, _, m1), s1 = sync_wall(lambda: step(p, state, batch))
+            (_, _, m2), s2 = sync_wall(lambda: step(p, state, batch))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            del p, state
+            torch.cuda.empty_cache()
+            attention()
+            _, attn_s = sync_wall(attention)
+            runs["bf16" if flag else "fp32"] = {
+                "loss": float(m1["loss"]), "loss_step2": float(m2["loss"]),
+                "first_step_s": s1, "step_s": s2,
+                "attention_s": attn_s * cfg.num_layers * TRAIN_MICRO, "peak_gb": peak}
+    finally:
+        L.set_flash_bf16(False)
+    del q, k, v
+    a, b = runs["fp32"], runs["bf16"]
+    delta = max(abs(a["loss"] - b["loss"]), abs(a["loss_step2"] - b["loss_step2"]))
+    out["flash_bf16"] = dict(runs, loss_delta=delta, tol=PERF_LOSS_TOL)
+    say(f"perf flash_bf16[{cfg.name}, seq {seq}, batch {TRAIN_BATCH} = {TRAIN_MICRO} x "
+        f"{TRAIN_BATCH // TRAIN_MICRO}, remat]: " + json.dumps(out["flash_bf16"], default=float))
+    if not delta <= PERF_LOSS_TOL:
+        raise SystemExit(f"perf: bf16 flash's loss differs from fp32's by {delta}")
+
+    # ---- decode with the masked cache write off and on ---------------------
+    rows, plen, max_len, ticks = (8, 32, 64, 4) if smoke else PERF_DECODE
+    prompts = TokenPipeline(cfg, rows, plen, seed=args.seed, mode="periodic",
+                            device=dev).batch_at(1)["tokens"][:, :plen]
+    dec = {}
+    with torch.no_grad():
+        logits, cache = prefill(model, init, {"tokens": prompts}, max_len=max_len)
+        first = logits[:, -1:].argmax(-1).to(torch.int32)
+        try:
+            for flag in (False, True):
+                L.set_cache_update_masked(flag)
+                decode_step(model, init, cache, first)            # warm-up tick
+                c, tok, got = cache, first, []
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(ticks):
+                    lg, c = decode_step(model, init, c, tok)
+                    got.append(lg)
+                    tok = lg[:, -1:].argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                dec["masked" if flag else "slice"] = {
+                    "tick_ms": (time.perf_counter() - t) / ticks * 1e3, "logits": got}
+        finally:
+            L.set_cache_update_masked(False)
+    equal = all(torch.equal(x, y) for x, y in zip(dec["slice"]["logits"],
+                                                   dec["masked"]["logits"]))
+    for r in dec.values():
+        del r["logits"]
+    out["masked_cache"] = dict(dec, rows=rows, prompt=plen, cache=max_len, ticks=ticks,
+                               logits_bit_equal=equal)
+    say(f"perf masked_cache[{cfg.name}, {rows} slots, {plen}-token prompts, {ticks} "
+        f"ticks]: " + json.dumps(out["masked_cache"], default=float))
+    if not equal:
+        raise SystemExit("perf: the masked cache write changed the logits")
+    del init, cache, logits, batch
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out["seconds"] = time.perf_counter() - t_path
+    out["peak_memory_gb"] = max(r["peak_gb"] for r in runs.values())
+    say(f"perf-path launches: {launches} ({out['seconds']:.1f} s)")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2814,7 +3170,7 @@ def main(argv=None) -> int:
                                   mean_average_precision, perturbed_queries,
                                   recall_at_k, tenant_corpus)
     from repro_torch.kernels import _lib, ops
-    from repro_torch.kernels.l2 import qdots_plain
+    from repro_torch.kernels.l2 import qdots_plain, qdots_work
     from repro_torch.kernels.refine_topk import (masked_distances, refine_topk,
                                                  refine_work, topk_flat)
     from repro_torch.serve import ClimberEngine
@@ -3188,7 +3544,7 @@ def main(argv=None) -> int:
         f"{dn_err:.3g}, {dn_differ} of 64 queries differ at near-ties "
         f"({dense_s * 1e3:.1f} ms vs {fused_s * 1e3:.1f} ms)")
     c_r = live_w * cap
-    bms, bby = bound_ms(4 * (q_r * c_r * n + q_r * n + q_r * c_r), 2 * q_r * c_r * n)
+    bms, bby = work_bound(qdots_work(q_r, c_r, n))
     kernels.append({
         "name": "qdots", "route": "cuda", "source": "src/repro_torch/csrc/l2.cu",
         "replaces": "src/repro/kernels/l2.py:100", "path": "eval",
@@ -3242,6 +3598,14 @@ def main(argv=None) -> int:
     # are gone) ---------------------------------------------------------------
     train_launches = train_path(args, dev, report)
     peak_gb = max(peak_gb, report["train"]["peak_memory_gb"])
+
+    # ---- the dry-run tools, launch counts zeroed ------------------------------
+    dryrun_launches = dryrun_path(args, dev, report)
+    peak_gb = max(peak_gb, report["dryrun"]["peak_memory_gb"])
+
+    # ---- the perf switches, launch counts zeroed ------------------------------
+    perf_launches = perf_path(args, dev, report)
+    peak_gb = max(peak_gb, report["perf"]["peak_memory_gb"])
     # the paths' own shapes, checked against the plain versions after each
     # path's counts were read: their errors join the kernel rows
     for row in kernels:
@@ -3254,6 +3618,9 @@ def main(argv=None) -> int:
             row["frontier_chunk"] = report["frontier"]["l2_check"]
             row["max_abs_err"] = max(row["max_abs_err"],
                                      row["frontier_chunk"]["max_abs_err"])
+        if row["name"] in DRYRUN_KERNELS:
+            row["dryrun_shape"] = report["dryrun"]["kernels"][row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], row["dryrun_shape"]["max_abs_err"])
         if row["name"] in LM_KERNELS:
             lm = report["lm"]["kernels"][row["name"]]
             row["lm_shape"] = lm
@@ -3263,7 +3630,8 @@ def main(argv=None) -> int:
     by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches,
                "net": net_launches, "mesh": mesh_launches,
                "frontier": frontier_launches, "lm": lm_launches,
-               "tp": tp_launches, "train": train_launches}
+               "tp": tp_launches, "train": train_launches, "dryrun": dryrun_launches,
+               "perf": perf_launches}
     for row in kernels:
         row["launches_by_path"] = {p_: c[row["name"]] for p_, c in by_path.items()}
 

@@ -45,6 +45,7 @@ from repro_torch.core.index import PartitionStore
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.refine_topk import PAD_D2, masked_distances, topk_flat
 from repro_torch.launch.mesh import as_mesh
+from repro_torch.utils import roofline as RL
 
 # Sentinel distance of a pad answer (gid = -1): both refine paths emit
 # sqrt(PAD_D2) for slots with fewer than k candidates.
@@ -53,8 +54,9 @@ PAD_DIST = float(np.sqrt(np.float32(3.4e38)))
 
 def default_use_kernel(device) -> bool:
     """Backend default for the refine implementation: the fused kernel for
-    a store on the card, the dense path on the CPU."""
-    return torch.device(device).type == "cuda"
+    a store on the card (and on ``meta``, a dry-run of the card's route),
+    the dense path on the CPU."""
+    return torch.device(device).type in ("cuda", "meta")
 
 
 def resolve_use_kernel(use_kernel: Optional[bool], device) -> bool:
@@ -188,8 +190,12 @@ def refine_sharded(store: PartitionStore, queries: torch.Tensor,
                                 sel_lo.to(dev), sel_hi.to(dev), k,
                                 use_kernel))
     lead = mesh.lead
-    d2 = torch.cat([p[0].to(lead) for p in parts], dim=-1)
-    gid = torch.cat([p[1].to(lead) for p in parts], dim=-1)
+    # the slots' lists gathered to the lead: an all-gather's bytes under a
+    # cost counter (one result, on the lead)
+    with RL.collective("all-gather") as moved:
+        d2 = torch.cat([p[0].to(lead) for p in parts], dim=-1)
+        gid = torch.cat([p[1].to(lead) for p in parts], dim=-1)
+        moved += [d2, gid]
     return _finish(*topk_flat(d2, gid, k))
 
 

@@ -20,7 +20,12 @@ the collectives over one mesh axis (:func:`psum`, :func:`pmax`,
 :func:`all_gather`, :func:`psum_scatter`) combine the pieces of the slots
 that differ on that axis alone, always in slot order, so every run sums in
 the same order.  No ``torch.distributed``: slots of one device that hold
-the same piece share one tensor.
+the same piece share one tensor.  Under a
+:class:`~repro_torch.utils.roofline.CostCounter` each collective adds its
+per-slot result bytes under the reference's HLO kind (``psum`` / ``pmax``:
+all-reduce, ``all_gather``: all-gather, ``psum_scatter``: reduce-scatter),
+its backward the transpose's, and its own adds and copies count no op
+bytes; a group of one slot moves nothing.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models.params import Spec, tree_leaves, tree_map
+from repro_torch.utils import roofline as RL
 from repro_torch.utils.config import ModelConfig
 
 
@@ -183,42 +189,54 @@ def gather(pieces: Sequence[torch.Tensor], mesh: DeviceMesh, spec,
 # ----------------------------------------------------------------------
 # collectives over one mesh axis, in slot order
 # ----------------------------------------------------------------------
-def _reduce(xs: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str, combine):
+def _reduce(xs: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str, combine,
+            moved: List[torch.Tensor], grad_kind: str = "all-reduce"):
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
     for s, group in enumerate(mesh.groups(axis)):
         if out[s] is not None:
             continue
         dev0 = mesh.slots[group[0]]
-        total = xs[group[0]]
-        for g in group[1:]:
-            total = combine(total, xs[g].to(dev0))
+        ins = [RL.grad_counted(xs[g], grad_kind) for g in group] \
+            if len(group) > 1 else [xs[group[0]]]
+        total = ins[0]
+        for x in ins[1:]:
+            total = combine(total, x.to(dev0))
         for g in group:
             out[g] = total.to(mesh.slots[g])
+            if len(group) > 1:
+                moved.append(out[g])
     return out
 
 
 def psum(xs: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str) -> List[torch.Tensor]:
     """Each slot gets the sum of the pieces of its group over ``axis``,
     added in the group's order on its first slot's device."""
-    return _reduce(xs, mesh, axis, torch.add)
+    with RL.collective("all-reduce") as moved:
+        return _reduce(xs, mesh, axis, torch.add, moved)
 
 
 def pmax(xs: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str) -> List[torch.Tensor]:
     """Each slot gets the elementwise max over its group on ``axis``."""
-    return _reduce(xs, mesh, axis, torch.maximum)
+    with RL.collective("all-reduce") as moved:
+        return _reduce(xs, mesh, axis, torch.maximum, moved)
 
 
 def all_gather(xs: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str,
                dim: int) -> List[torch.Tensor]:
     """Each slot gets its group's pieces on ``axis`` joined along ``dim``."""
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
-    for s, group in enumerate(mesh.groups(axis)):
-        if out[s] is None:
-            dev0 = mesh.slots[group[0]]
-            whole = torch.cat([xs[g].to(dev0) for g in group], dim=dim) \
-                if len(group) > 1 else xs[group[0]]
-            for g in group:
-                out[g] = whole.to(mesh.slots[g])
+    with RL.collective("all-gather") as moved:
+        for s, group in enumerate(mesh.groups(axis)):
+            if out[s] is None:
+                if len(group) == 1:
+                    out[s] = xs[s].to(mesh.slots[s])
+                    continue
+                dev0 = mesh.slots[group[0]]
+                whole = torch.cat([RL.grad_counted(xs[g], "reduce-scatter").to(dev0)
+                                   for g in group], dim=dim)
+                for g in group:
+                    out[g] = whole.to(mesh.slots[g])
+                    moved.append(out[g])
     return out
 
 
@@ -226,12 +244,15 @@ def psum_scatter(xs: Sequence[torch.Tensor], mesh: DeviceMesh, axis: str,
                  dim: int) -> List[torch.Tensor]:
     """:func:`psum`, then each slot keeps its coordinate's equal part of
     ``dim`` (a reduce-scatter)."""
-    total = psum(xs, mesh, axis)
-    out = []
-    for s, group in enumerate(mesh.groups(axis)):
-        n, i = len(group), group.index(s)
-        size = total[s].shape[dim] // n
-        out.append(total[s].narrow(dim, i * size, size) if n > 1 else total[s])
+    with RL.collective("reduce-scatter") as moved:
+        total = _reduce(xs, mesh, axis, torch.add, [], grad_kind="all-gather")
+        out = []
+        for s, group in enumerate(mesh.groups(axis)):
+            n, i = len(group), group.index(s)
+            size = total[s].shape[dim] // n
+            out.append(total[s].narrow(dim, i * size, size) if n > 1 else total[s])
+            if n > 1:
+                moved.append(out[-1])
     return out
 
 

@@ -20,9 +20,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.utils import roofline as RL
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -142,17 +144,38 @@ SMEM_LIMIT = 232_448
 
 def on_card(*tensors: torch.Tensor) -> bool:
     """Dispatch rule of every kernel wrapper, keyed on the tensors' device:
-    True for CUDA tensors (launch the kernel, or raise), False for CPU
-    tensors (the plain PyTorch version).  Mixed or other devices raise."""
+    True for CUDA tensors (launch the kernel, or raise) and for ``meta``
+    tensors (the card's route in a dry-run: :func:`meta_outputs`), False
+    for CPU tensors (the plain PyTorch version).  Mixed or other devices
+    raise."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cuda":
+    if dev.type in ("cuda", "meta"):
         return True
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain path for device {dev}")
+
+
+class Work(NamedTuple):
+    """What a kernel must do for one call: FLOPs, and bytes (each input
+    read once, each output written once).  Each kernel module's work
+    function gives it; ``chip_smoke.py``'s bounds and the dry-run's count
+    both read it."""
+    flops: float
+    nbytes: float
+
+
+def meta_outputs(work: Work, *outs: Tuple[Sequence[int], torch.dtype]):
+    """A kernel's call on ``meta`` tensors (a dry-run): outputs of the
+    kernel's shapes and dtypes on ``meta``, its work added to the active
+    :class:`~repro_torch.utils.roofline.CostCounter`.  Nothing is computed
+    or allocated, and no launch is counted."""
+    with RL.charge(work.flops, work.nbytes):
+        made = tuple(torch.empty(tuple(shape), dtype=dt, device="meta") for shape, dt in outs)
+    return made[0] if len(made) == 1 else made
 
 
 _COUNT_LOCK = threading.Lock()

@@ -48,9 +48,21 @@ def qdots_plain(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return (rows.float() * q.float()[:, None, :]).sum(dim=-1)
 
 
+def pairwise_l2_work(qn: int, cn: int, n: int) -> _lib.Work:
+    """One call's work: q, x read and ``[Q, C]`` written, 2n FLOPs an output."""
+    return _lib.Work(flops=2 * qn * cn * n, nbytes=4 * (cn * n + qn * n + qn * cn))
+
+
+def qdots_work(qn: int, cn: int, n: int) -> _lib.Work:
+    """One call's work: q and the ``[Q, C, n]`` rows read, ``[Q, C]``
+    written, 2n FLOPs an output."""
+    return _lib.Work(flops=2 * qn * cn * n, nbytes=4 * (qn * cn * n + qn * n + qn * cn))
+
+
 def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Squared ED ``[Q, C]`` through the kernel for CUDA tensors, the plain
-    version for CPU tensors.  ``q`` ``[Q, n]``, ``x`` ``[C, n]`` float32."""
+    version for CPU tensors, the kernel's output and counted work for
+    ``meta`` tensors.  ``q`` ``[Q, n]``, ``x`` ``[C, n]`` float32."""
     if not _lib.on_card(q, x):
         return pairwise_l2_plain(q, x)
     _lib.require(q, "pairwise_l2 q", torch.float32, 2)
@@ -59,6 +71,8 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     cn = x.shape[0]
     if x.shape[1] != n:
         raise ValueError(f"pairwise_l2: q has n={n}, x has n={x.shape[1]}")
+    if q.device.type == "meta":
+        return _lib.meta_outputs(pairwise_l2_work(qn, cn, n), ((qn, cn), torch.float32))
     out = torch.empty((qn, cn), dtype=torch.float32, device=q.device)
     if qn == 0 or cn == 0:
         return out
@@ -72,8 +86,8 @@ def pairwise_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def qdots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Per-query dots ``[Q, C]`` through the kernel for CUDA tensors, the
-    plain version for CPU tensors.  ``q`` ``[Q, n]``, ``rows`` ``[Q, C, n]``
-    float32."""
+    plain version for CPU tensors, the kernel's output and counted work for
+    ``meta`` tensors.  ``q`` ``[Q, n]``, ``rows`` ``[Q, C, n]`` float32."""
     if not _lib.on_card(q, rows):
         return qdots_plain(q, rows)
     _lib.require(q, "qdots q", torch.float32, 2)
@@ -83,6 +97,8 @@ def qdots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"qdots: rows {tuple(rows.shape)} do not match "
                          f"q {tuple(q.shape)}")
     cn = rows.shape[1]
+    if q.device.type == "meta":
+        return _lib.meta_outputs(qdots_work(qn, cn, n), ((qn, cn), torch.float32))
     out = torch.empty((qn, cn), dtype=torch.float32, device=q.device)
     if qn == 0 or cn == 0:
         return out

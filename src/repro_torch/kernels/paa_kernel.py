@@ -40,9 +40,16 @@ def paa_sequential(x: torch.Tensor, segments: int) -> torch.Tensor:
     return acc / (n // segments)
 
 
+def paa_work(b: int, n: int, w: int) -> _lib.Work:
+    """One call's work: ``[B, n]`` read and ``[B, w]`` written (fp32), one
+    add per sample."""
+    return _lib.Work(flops=b * n, nbytes=4 * (b * n + b * w))
+
+
 def paa(x: torch.Tensor, segments: int) -> torch.Tensor:
     """PAA through the kernel for a CUDA tensor, the plain version for a
-    CPU tensor.  ``x``: ``[B, n]`` float32, n divisible by ``segments``."""
+    CPU tensor, the kernel's output and counted work for a ``meta`` tensor.
+    ``x``: ``[B, n]`` float32, n divisible by ``segments``."""
     if not _lib.on_card(x):
         return paa_plain(x, segments)
     if x.dim() != 2 or x.shape[1] % segments:
@@ -50,6 +57,8 @@ def paa(x: torch.Tensor, segments: int) -> torch.Tensor:
                          f"w={segments}, got {tuple(x.shape)}")
     b, n = x.shape
     _lib.require(x, "paa x", torch.float32, 2)
+    if x.device.type == "meta":
+        return _lib.meta_outputs(paa_work(b, n, segments), ((b, segments), torch.float32))
     out = torch.empty((b, segments), dtype=torch.float32, device=x.device)
     lib = _lib.library()
     with torch.cuda.device(x.device):

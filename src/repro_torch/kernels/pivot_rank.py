@@ -46,9 +46,16 @@ def pivot_rank_plain(paa: torch.Tensor, pivots: torch.Tensor, m: int) -> torch.T
     return torch.sort(d, dim=-1, stable=True).indices[..., :m].to(torch.int32)
 
 
+def pivot_rank_work(b: int, w: int, r: int, m: int) -> _lib.Work:
+    """One call's work: the rows and pivots read, the ids written, and
+    2w + 3 operations per (row, pivot) distance."""
+    return _lib.Work(flops=b * r * (2 * w + 3), nbytes=4 * (b * w + r * w + b * m))
+
+
 def pivot_rank(paa: torch.Tensor, pivots: torch.Tensor, m: int) -> torch.Tensor:
     """P4→ through the kernel for CUDA tensors, the plain version for CPU
-    tensors.  ``[B, w]`` × ``[r, w]`` → ``[B, m]`` int32."""
+    tensors, the kernel's output and counted work for ``meta`` tensors.
+    ``[B, w]`` × ``[r, w]`` → ``[B, m]`` int32."""
     if paa.dim() != 2 or pivots.dim() != 2 or paa.shape[1] != pivots.shape[1]:
         raise ValueError(f"pivot_rank expects [B, w] x [r, w], got "
                          f"{tuple(paa.shape)} x {tuple(pivots.shape)}")
@@ -60,6 +67,11 @@ def pivot_rank(paa: torch.Tensor, pivots: torch.Tensor, m: int) -> torch.Tensor:
         return pivot_rank_plain(paa, pivots, m)
     _lib.require(paa, "pivot_rank paa", torch.float32, 2)
     _lib.require(pivots, "pivot_rank pivots", torch.float32, 2)
+    if paa.device.type == "meta":
+        if w not in KERNEL_WIDTHS or m > KERNEL_MAX_M:
+            raise ValueError(f"pivot_rank kernel takes w in {KERNEL_WIDTHS} and "
+                             f"m <= {KERNEL_MAX_M}; got w={w}, m={m}")
+        return _lib.meta_outputs(pivot_rank_work(b, w, r, m), ((b, m), torch.int32))
     lib = _lib.library()
     if w not in KERNEL_WIDTHS or m > KERNEL_MAX_M \
             or lib.climber_pivot_rank_smem(w, r, m) > _lib.SMEM_LIMIT:

@@ -105,6 +105,18 @@ def refine_work(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi) -> dict:
             "live_slots": int((sel_part >= 0).sum()) * cap}
 
 
+def refine_topk_work(kept_pairs: int, unique_kept_records: int, live_slots: int,
+                     nq: int, mp: int, n: int, k: int) -> _lib.Work:
+    """One call's work on a partition-sorted plan of ``nq`` queries and
+    ``mp`` entries, from :func:`refine_work`'s counts: each distinct kept
+    record's row and norm and each live slot's tags read once, the queries
+    and the plan read, (d², gid) written; 2n + 3 operations a kept
+    (query, record) pair."""
+    return _lib.Work(flops=kept_pairs * (2 * n + 3),
+                     nbytes=unique_kept_records * (4 * n + 4) + live_slots * 8
+                     + nq * n * 4 + 3 * nq * mp * 4 + nq * k * 8)
+
+
 def topk_flat(d2: torch.Tensor, gid: torch.Tensor, k: int):
     """The k smallest of ``[Q, C]`` by (d², column), padded past C.
 
@@ -142,7 +154,11 @@ def pick_splits(k: int) -> int:
 def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
                 sel_hi, k: int, *, splits: Optional[int] = None):
     """Fused refine through the kernel for CUDA tensors, the plain version
-    for CPU tensors.
+    for CPU tensors, the kernel's outputs and counted work for ``meta``
+    tensors.  A ``meta`` plan has no values to dedupe or mask: every entry
+    counts as a live, whole partition of ``cap`` rows for its query (the
+    reference dry-run's ``sel_rows`` rule), so ``kept_pairs``,
+    ``unique_kept_records`` and ``live_slots`` are all ``Q · MP · cap``.
 
     Args:
       data / norms / rec_dfs / rec_gid: the store, ``[P, cap, n]`` f32 /
@@ -182,6 +198,10 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
     if mp * cap >= 2**31 or k < 1:
         raise ValueError(f"refine kernel needs MP*cap < 2^31 and k >= 1 "
                          f"(MP={mp}, cap={cap}, k={k})")
+    if dev.type == "meta":
+        rows = qn * mp * cap
+        return _lib.meta_outputs(refine_topk_work(rows, rows, rows, qn, mp, n, k),
+                                 ((qn, k), torch.float32), ((qn, k), torch.int32))
     lib = _lib.library()
     if lib.climber_refine_partial_smem(mp, n, k) > _lib.SMEM_LIMIT:
         raise ValueError(f"refine kernel: MP={mp}, n={n}, k={k} exceed the "

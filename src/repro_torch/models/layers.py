@@ -15,9 +15,11 @@ parallelism, which the reference gets from GSPMD).
 A slot's part of a dim that does not divide is its range of a replicated
 copy (:func:`model_part`).  :func:`set_decode_shard` is the reference's
 switch for flash-decoding over a sequence-sharded cache
-(:func:`_flash_decode_sharded`).  The other perf-harness switches (bf16
-flash operands, the masked cache update, inner-scan unrolling) are not
-ported yet: this module runs the reference's defaults.
+(:func:`_flash_decode_sharded`).  The other perf-harness switches are the
+reference's too, under its names and defaults: :func:`set_flash_bf16`
+(bf16 flash operands, fp32 accumulation), :func:`set_cache_update_masked`
+(the decode cache written by a one-hot select) and
+:func:`set_inner_unroll` (no effect in eager torch, kept for the API).
 """
 from __future__ import annotations
 
@@ -31,11 +33,42 @@ from repro_torch.utils.config import ModelConfig
 
 NEG_INF = -2.0e38
 
+# Set True (via set_inner_unroll) for the reference's dry-run cost
+# compiles, which unroll its inner KV / SSD chunk scans so that XLA counts
+# every chunk.  Eager torch runs every chunk in a Python loop whatever the
+# flag: it is kept for the API and changes nothing here.
+INNER_SCAN_UNROLL = False
+
+# §Perf knobs (set by the perf harness, launch/perf.py):
+#  FLASH_BF16          — flash-attention operands (scaled q, k, v, and p)
+#                        rounded to bf16, products accumulated in fp32 with
+#                        an fp32 result (:func:`_heads_matmul`).
+#  CACHE_UPDATE_MASKED — decode-cache write by a one-hot select instead of
+#                        a slice write; the same bits (a one-token write at
+#                        a position inside the cache).
+FLASH_BF16 = False
+CACHE_UPDATE_MASKED = False
+
 #  DECODE_SHARD — (mesh, batch_axes) or None.  When set, decode attention of
 #  a Model on a mesh runs as explicit flash-decoding over the cache's
 #  sequence split (local partial softmax per seq shard + pmax/psum combine)
 #  wherever ``s_max % model == 0``, instead of gathering the whole cache.
 DECODE_SHARD = None
+
+
+def set_inner_unroll(flag: bool) -> None:
+    global INNER_SCAN_UNROLL
+    INNER_SCAN_UNROLL = bool(flag)
+
+
+def set_flash_bf16(flag: bool) -> None:
+    global FLASH_BF16
+    FLASH_BF16 = bool(flag)
+
+
+def set_cache_update_masked(flag: bool) -> None:
+    global CACHE_UPDATE_MASKED
+    CACHE_UPDATE_MASKED = bool(flag)
 
 
 def set_decode_shard(mesh, batch_axes=("data",)) -> None:
@@ -91,12 +124,62 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
     """Write ``new`` at ``pos`` along axis 1 of a [B, S, ...] cache, into a
     copy.  The start clamps to ``[0, S - len]`` as XLA's
-    ``dynamic_update_slice`` clamps it."""
+    ``dynamic_update_slice`` clamps it.  With :data:`CACHE_UPDATE_MASKED`
+    a one-token ``new`` is selected in by a one-hot mask over S, as the
+    reference's masked write does (nothing is written where ``pos`` lies
+    outside the cache)."""
+    if CACHE_UPDATE_MASKED:
+        s_max = cache.shape[1]
+        onehot = (torch.arange(s_max, device=cache.device) == int(pos)).reshape(
+            (1, s_max) + (1,) * (cache.ndim - 2))
+        return torch.where(onehot, new.to(cache.dtype), cache)
     n = new.shape[1]
     start = min(max(int(pos), 0), cache.shape[1] - n)
     out = cache.clone()
     out[:, start:start + n] = new.to(cache.dtype)
     return out
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 ``[N, M, K]`` × ``[N, K, P]``, fp32 products summed
+    in fp32, an fp32 result.  On the card and on ``meta`` one bf16 GEMM
+    with an fp32 output (``torch.bmm(..., out_dtype=torch.float32)``:
+    cuBLAS's tensor-core order); on the CPU, where that op does not run,
+    the same bf16 operands upcast to one fp32 GEMM (exact products, the
+    CPU's summation order)."""
+    if a.device.type == "cpu":
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _BF16MatmulF32(torch.autograd.Function):
+    """:func:`_bmm_f32` with its backward: each grad is a GEMM of the
+    incoming fp32 grad rounded to bf16 with the other bf16 operand, fp32
+    accumulation, rounded to the operand's bf16."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        ga = _bmm_f32(g, b.transpose(1, 2)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = _bmm_f32(a.transpose(1, 2), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _heads_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per (batch, head) ``a @ b`` of bf16 ``a`` [B, M, H, K] and ``b``
+    [B, K, H, P] → fp32 [B, M, H, P] (:data:`FLASH_BF16`'s two GEMMs)."""
+    bsz, m, h, kd = a.shape
+    p = b.shape[-1]
+    a3 = a.permute(0, 2, 1, 3).reshape(bsz * h, m, kd)
+    b3 = b.permute(0, 2, 1, 3).reshape(bsz * h, kd, p)
+    out = _BF16MatmulF32.apply(a3, b3)
+    return out.reshape(bsz, h, m, p).permute(0, 2, 1, 3)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,6 +191,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV heads expanded to H per chunk.  q_offset: absolute position of q[0]
     (causal masking in decode).  kv_valid: [B, Skv] bool cache-validity
     mask.  Returns [B, Sq, H, hd_v] in q.dtype; scores and softmax in fp32.
+    With :data:`FLASH_BF16` the scaled q, k, v and p are rounded to bf16 and
+    both products accumulate in fp32 (:func:`_heads_matmul`), as the
+    reference's ``preferred_element_type=float32`` GEMMs do.
     """
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
@@ -119,6 +205,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
 
     qf = q.float() * scale                                   # [B, Sq, H, hd]
+    op = torch.bfloat16 if FLASH_BF16 else torch.float32
+    if FLASH_BF16:
+        qf = qf.to(op)
     q_pos = q_offset + torch.arange(sq, device=dev)
     if kv_valid is None:
         kv_valid = torch.ones((b, skv), dtype=torch.bool, device=dev)
@@ -130,11 +219,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     for c in range(nchunks):
         sl = slice(c * chunk, (c + 1) * chunk)
-        k_e, v_e = k[:, sl].float(), v[:, sl].float()
+        k_e, v_e = k[:, sl].to(op), v[:, sl].to(op)
         if g > 1:
             k_e = torch.repeat_interleave(k_e, g, dim=2)     # [B, c, H, hd]
             v_e = torch.repeat_interleave(v_e, g, dim=2)
-        s = torch.einsum("bqhd,bchd->bqhc", qf, k_e)
+        if FLASH_BF16:
+            s = _heads_matmul(qf, k_e.transpose(1, 3))         # [B, Sq, H, c]
+        else:
+            s = torch.einsum("bqhd,bchd->bqhc", qf, k_e)
         mask = kv_valid[:, sl][:, None, None, :]
         if causal:
             kpos = torch.arange(sl.start, sl.stop, device=dev)
@@ -145,7 +237,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         denom = denom * corr + p.sum(dim=-1)
-        pv = torch.einsum("bqhc,bchd->bqhd", p, v_e)
+        if FLASH_BF16:
+            pv = _heads_matmul(p.to(op), v_e)                 # [B, Sq, H, hd_v]
+        else:
+            pv = torch.einsum("bqhc,bchd->bqhd", p, v_e)
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(denom[..., None], 1e-30)

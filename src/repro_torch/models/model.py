@@ -82,9 +82,16 @@ def _remat(fn, cfg: ModelConfig):
 
 
 # §Perf knob of the reference: sequence-parallel sharding of the layer
-# carry over the model slots (on by default there).  Its switch
-# (``set_seq_shard_acts``) comes with the perf tools.
+# carry over the model slots.  ON keeps the carry (the remat residuals)
+# 1/model smaller at the cost of per-layer gathers; OFF trades memory for
+# collectives.  Values are the same either way.
 SEQ_SHARD_ACTS = True
+
+
+def set_seq_shard_acts(flag: bool) -> None:
+    global SEQ_SHARD_ACTS
+    SEQ_SHARD_ACTS = bool(flag)
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE in fp32.  logits [B,S,V], labels [B,S]."""

@@ -31,6 +31,7 @@ import torch
 from repro_torch.distributed.sharding import psum
 from repro_torch.models.layers import rmsnorm, silu
 from repro_torch.models.params import ParamInfo
+from repro_torch.utils import roofline as RL
 from repro_torch.utils.config import ModelConfig
 
 CONV_W = 4
@@ -241,33 +242,38 @@ def take(xs: Sequence[torch.Tensor], have: Sequence[Ranges], want: Sequence[Rang
     ``s`` piece ``xs[s]`` holds the ranges ``have[s]`` in that order, and
     every part of a wanted range comes from the slot itself where it holds
     it, else from the first slot of its group on ``axis`` that does (a
-    gather of just the columns a slot uses)."""
+    gather of just the columns a slot uses).  Under a cost counter the
+    parts fetched from other slots count as collective-permute bytes."""
     out = []
-    for s, group in enumerate(mesh.groups(axis)):
-        if list(want[s]) == list(have[s]):
-            out.append(xs[s])
-            continue
-        order = [s] + [g for g in group if g != s]
-        parts = []
-        for lo, hi in want[s]:
-            pos = lo
-            while pos < hi:
-                for src in order:
-                    off = 0
-                    for a, b in have[src]:
-                        if a <= pos < b:
-                            n = min(hi, b) - pos
-                            parts.append(xs[src].narrow(dim, off + pos - a, n)
-                                         .to(mesh.slots[s]))
-                            pos += n
-                            break
-                        off += b - a
+    with RL.collective("collective-permute") as moved:
+        for s, group in enumerate(mesh.groups(axis)):
+            if list(want[s]) == list(have[s]):
+                out.append(xs[s])
+                continue
+            order = [s] + [g for g in group if g != s]
+            parts = []
+            for lo, hi in want[s]:
+                pos = lo
+                while pos < hi:
+                    for src in order:
+                        off = 0
+                        for a, b in have[src]:
+                            if a <= pos < b:
+                                n = min(hi, b) - pos
+                                part = xs[src].narrow(dim, off + pos - a, n)
+                                if src != s:
+                                    part = RL.grad_counted(part, "collective-permute")
+                                    moved.append(part)
+                                parts.append(part.to(mesh.slots[s]))
+                                pos += n
+                                break
+                            off += b - a
+                        else:
+                            continue
+                        break
                     else:
-                        continue
-                    break
-                else:
-                    raise ValueError(f"no slot of {group} holds index {pos}")
-        out.append(torch.cat(parts, dim) if len(parts) != 1 else parts[0])
+                        raise ValueError(f"no slot of {group} holds index {pos}")
+            out.append(torch.cat(parts, dim) if len(parts) != 1 else parts[0])
     return out
 
 

@@ -30,6 +30,7 @@ from repro_torch.distributed.sharding import Layout, flat_specs, holders
 from repro_torch.launch.mesh import DeviceMesh, with_model_axis
 from repro_torch.models.params import Spec, param_pspecs, tree_leaves, tree_map
 from repro_torch.train.optimizer import AdamW, AdamWState
+from repro_torch.utils import roofline as RL
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -85,11 +86,18 @@ def make_train_step(model, opt: AdamW, *, kv_chunk: int = 2048,
     def train_step(params, opt_state: AdamWState, batch):
         loss, grads = value_and_grad(model, params, batch, kv_chunk=kv_chunk,
                                      microbatches=microbatches)
-        if not math.isfinite(float(loss)):
+        if not finite(loss):
             return params, opt_state, skipped(opt, opt_state, loss)
         params, opt_state, stats = opt.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, **stats}
     return train_step
+
+
+def finite(loss: torch.Tensor) -> bool:
+    """Whether the step's loss is finite.  A ``meta`` loss (a dry-run's
+    counted step, :mod:`repro_torch.launch.dryrun`) has no value and counts
+    as finite, so the counted step takes the update."""
+    return loss.device.type == "meta" or math.isfinite(float(loss))
 
 
 def skipped(opt: AdamW, state: AdamWState, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -156,16 +164,20 @@ def _mesh_train_step(model, opt: AdamW, kv_chunk: int, microbatches: int) -> Cal
             loss = loss + part.detach()
             del grads
         loss = loss / microbatches
-        if not math.isfinite(float(loss)):
+        if not finite(loss):
             return params, opt_state, skipped(opt, opt_state[0], loss)
         # each piece's grad: the sum over the slots that hold it, in slot order
+        # (an all-reduce over each piece's holders, under a cost counter)
         pieces = [holders(mesh, sp) for sp in flat_specs(params[0], model.param_specs())]
         for i, groups in enumerate(pieces):
             for group in groups:
                 dev0 = acc[group[0]][i].device
                 total = acc[group[0]][i]
-                for s in group[1:]:
-                    total = total + acc[s][i].to(dev0)
+                if len(group) > 1:
+                    with RL.collective("all-reduce") as moved:
+                        for s in group[1:]:
+                            total = total + acc[s][i].to(dev0)
+                        moved.extend([total] * len(group))
                 total = total / microbatches
                 for s in group:
                     acc[s][i] = total.to(acc[s][i].device)

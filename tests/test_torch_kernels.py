@@ -7,7 +7,10 @@ CUDA tests still collect.  Tests marked ``cuda`` skip themselves where no
 card is present; run them on one with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
+import types
+
 import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -229,10 +232,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 @pytest.mark.parametrize("wrapper", ["paa", "pivot_rank"])
 def test_other_devices_raise(wrapper):
+    """A device with neither a kernel nor a plain path, or tensors on two
+    devices, raise (``meta`` is the card's route in a dry-run)."""
     meta = torch.empty((4, 16), device="meta")
     with pytest.raises(ValueError):
         if wrapper == "paa":
-            ops.paa(meta, 4)
+            ops.paa(types.SimpleNamespace(device=torch.device("xpu")), 4)
         else:
             ops.pivot_rank(meta, torch.empty((8, 16)), 3)
 

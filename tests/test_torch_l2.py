@@ -143,7 +143,7 @@ def test_other_devices_raise(wrapper):
     q = torch.empty((4, 16), device="meta")
     with pytest.raises(ValueError):
         if wrapper == "pairwise_l2":
-            ops.pairwise_l2(q, torch.empty((8, 16), device="meta"))
+            ops.pairwise_l2(q, torch.empty((8, 16)))
         else:
             ops.qdots(q, torch.empty((4, 8, 16)))
 
