@@ -1,0 +1,6 @@
+"""Plan per tick: ``EngineStats.plan_s`` over the window, per tick."""
+
+
+def read(record):
+    st = record["stats"]
+    return st["plan_s"] / st["ticks"] * 1e3 if st["ticks"] else None
