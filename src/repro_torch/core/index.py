@@ -19,7 +19,6 @@ query time is an interval test.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
@@ -33,6 +32,7 @@ from repro_torch.core.signatures import set_signature
 from repro_torch.core.traversal import TrieDevice, route_records
 from repro_torch.core.trie import TrieForest, build_forest
 from repro_torch.kernels import ops
+from repro_torch.obs import TRACER
 from repro_torch.utils.config import ClimberConfig
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 
@@ -159,66 +159,66 @@ def build_index(data: torch.Tensor, cfg: ClimberConfig, *,
     ``[r]`` pivot rows of the sample; ``"maxmin"`` (farthest-point, the
     reference's beyond-paper option) as the single row it starts from.
     Handing over the JAX package's draws reproduces its forest, centroids
-    and store exactly.  ``index.build_seconds`` records each step's wall
-    time.
+    and store exactly.  Each step runs in a ``build.<step>`` span (sample,
+    centroids, skeleton, route, store); ``index.build_seconds`` holds the
+    spans' durations and their sum as ``total``.
     """
     dev = resolve_device(device)
     n_rec, series_len = data.shape
     if series_len != cfg.series_len:
         raise ValueError(f"data series_len {series_len} != cfg {cfg.series_len}")
     data = data.to(dev, torch.float32)
-    secs: Dict[str, float] = {}
-    t0 = time.perf_counter()
+    spans = {}
 
     # ---- Step 1: sample, PAA, pivots, signatures ------------------------
-    s = sample_size(n_rec, cfg)
-    alpha_eff = s / n_rec
-    if sample_idx is None:
-        sample_idx = pivots_mod.draw_indices(n_rec, s, generator, dev)
-    sample_idx = pivots_mod.as_index(sample_idx, dev)
-    if sample_idx.shape != (s,):
-        raise ValueError(f"sample_idx has shape {tuple(sample_idx.shape)}, "
-                         f"expected ({s},)")
-    sample_paa = ops.paa(data[sample_idx], cfg.paa_segments)
-    pivots = pivots_mod.select_pivots(sample_paa, cfg.num_pivots,
-                                      idx=pivot_idx, generator=generator,
-                                      method=pivot_method)
-    p4r_s = ops.pivot_rank(sample_paa, pivots, cfg.prefix_len)
-    p4r_np = p4r_s.cpu().numpy()
-    p4s_np = set_signature(p4r_s).cpu().numpy()
-    secs["sample"] = time.perf_counter() - t0
+    with TRACER.span("build.sample") as spans["sample"]:
+        s = sample_size(n_rec, cfg)
+        alpha_eff = s / n_rec
+        if sample_idx is None:
+            sample_idx = pivots_mod.draw_indices(n_rec, s, generator, dev)
+        sample_idx = pivots_mod.as_index(sample_idx, dev)
+        if sample_idx.shape != (s,):
+            raise ValueError(f"sample_idx has shape "
+                             f"{tuple(sample_idx.shape)}, expected ({s},)")
+        sample_paa = ops.paa(data[sample_idx], cfg.paa_segments)
+        pivots = pivots_mod.select_pivots(sample_paa, cfg.num_pivots,
+                                          idx=pivot_idx, generator=generator,
+                                          method=pivot_method)
+        p4r_s = ops.pivot_rank(sample_paa, pivots, cfg.prefix_len)
+        p4r_np = p4r_s.cpu().numpy()
+        p4s_np = set_signature(p4r_s).cpu().numpy()
 
     # ---- Step 2: centroids (host, Algorithm 2) --------------------------
-    t = time.perf_counter()
-    cents = centroids_mod.compute_centroids(
-        p4s_np, cfg.num_pivots, sample_frac=alpha_eff, capacity=cfg.capacity,
-        min_od=cfg.centroid_min_od, max_centroids=cfg.max_centroids)
-    c_onehot = torch.as_tensor(cents.onehot, device=dev)
-    secs["centroids"] = time.perf_counter() - t
+    with TRACER.span("build.centroids") as spans["centroids"]:
+        cents = centroids_mod.compute_centroids(
+            p4s_np, cfg.num_pivots, sample_frac=alpha_eff,
+            capacity=cfg.capacity, min_od=cfg.centroid_min_od,
+            max_centroids=cfg.max_centroids)
+        c_onehot = torch.as_tensor(cents.onehot, device=dev)
 
     # ---- Step 3: sample groups → tries → packing (host) -----------------
-    t = time.perf_counter()
-    uniq, counts = np.unique(p4r_np, axis=0, return_counts=True)
-    grp_s = assignment.assign_groups(
-        torch.as_tensor(uniq, device=dev), c_onehot, cfg.num_pivots,
-        decay=cfg.decay, decay_lambda=cfg.decay_lambda)
-    forest = build_forest(uniq, counts, grp_s.cpu().numpy(),
-                          cents.num_groups, cfg.num_pivots,
-                          capacity=float(cfg.capacity), sample_frac=alpha_eff)
-    trie_dev = TrieDevice.from_forest(forest, dev)
-    secs["skeleton"] = time.perf_counter() - t
+    with TRACER.span("build.skeleton") as spans["skeleton"]:
+        uniq, counts = np.unique(p4r_np, axis=0, return_counts=True)
+        grp_s = assignment.assign_groups(
+            torch.as_tensor(uniq, device=dev), c_onehot, cfg.num_pivots,
+            decay=cfg.decay, decay_lambda=cfg.decay_lambda)
+        forest = build_forest(uniq, counts, grp_s.cpu().numpy(),
+                              cents.num_groups, cfg.num_pivots,
+                              capacity=float(cfg.capacity),
+                              sample_frac=alpha_eff)
+        trie_dev = TrieDevice.from_forest(forest, dev)
 
     # ---- Step 4: full-dataset routing + physical store -------------------
-    t = time.perf_counter()
-    part, rec_dfs = _route_full_dataset(data, pivots, c_onehot, trie_dev, cfg)
-    synchronize(dev)
-    secs["route"] = time.perf_counter() - t
-    t = time.perf_counter()
-    store = build_store(data, part, rec_dfs, forest.num_partitions,
-                        pad=cfg.partition_pad)
-    synchronize(dev)
-    secs["store"] = time.perf_counter() - t
-    secs["total"] = time.perf_counter() - t0
+    with TRACER.span("build.route") as spans["route"]:
+        part, rec_dfs = _route_full_dataset(data, pivots, c_onehot, trie_dev,
+                                            cfg)
+        synchronize(dev)
+    with TRACER.span("build.store") as spans["store"]:
+        store = build_store(data, part, rec_dfs, forest.num_partitions,
+                            pad=cfg.partition_pad)
+        synchronize(dev)
+    secs = {step: sp.duration_ms * 1e-3 for step, sp in spans.items()}
+    secs["total"] = sum(secs.values())
     return ClimberIndex(cfg=cfg, pivots=pivots, centroid_onehot=c_onehot,
                         forest=forest, trie=trie_dev, store=store,
                         build_seconds=secs)

@@ -1,10 +1,12 @@
 """Opt-in device profiling — ``torch.profiler`` trace capture.
 
 The registry/tracer pair measures *host-side* wall time; what the card
-did lives in the profiler's trace.  The fleet's stacked pass and the
-engine's stages are wrapped in :func:`trace_annotation` ranges
+did lives in the profiler's trace.  While :func:`device_trace` captures,
+every :class:`~repro_torch.obs.tracer.SpanTracer` span of the process
+tracer (build, serve, fleet, net) also opens a profiler range of its name,
+and the fleet's stacked pass adds its :func:`trace_annotation` ranges
 (``fleet.mesh.query``, ``fleet.mesh.dispatch``), so a captured trace lines
-the two views up.
+the two views up.  Under any other capture the spans open no range.
 
 Capture is strictly opt-in (profiling is not free)::
 
@@ -18,6 +20,8 @@ from __future__ import annotations
 from contextlib import contextmanager
 from pathlib import Path
 
+from repro_torch.obs.tracer import TRACER
+
 __all__ = ["device_trace", "trace_annotation"]
 
 
@@ -25,8 +29,9 @@ __all__ = ["device_trace", "trace_annotation"]
 def device_trace(log_dir):
     """Capture a ``torch.profiler`` trace (host and, where there is a card,
     device activity) of the enclosed block into ``log_dir/trace.json``
-    (the directory is created if missing).  Reentrant use raises: the
-    profiler allows one active trace per process."""
+    (the directory is created if missing), with every span of ``TRACER``
+    opened inside the block drawn as a range of its name.  Reentrant use
+    raises: the profiler allows one active trace per process."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
@@ -35,7 +40,11 @@ def device_trace(log_dir):
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield prof
+        TRACER.profiling = True
+        try:
+            yield prof
+        finally:
+            TRACER.profiling = False
     prof.export_chrome_trace(str(log_dir / "trace.json"))
 
 

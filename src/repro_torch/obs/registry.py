@@ -142,9 +142,10 @@ class Histogram:
         self._min = math.inf
         self._max = -math.inf
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, n: int = 1) -> None:
+        """Record ``v`` ``n`` times (one lock for a tick of equal values)."""
         v = float(v)
-        if v != v:                      # NaN: refuse silently-poisoned tails
+        if v != v or n < 1:             # NaN: refuse silently-poisoned tails
             return
         if v < self.lo:
             idx = 0
@@ -154,9 +155,9 @@ class Histogram:
             idx = 1 + min(int(math.log(v / self.lo) / self._log_g),
                           self._nb - 1)
         with self._lock:
-            self._counts[idx] += 1
-            self._count += 1
-            self._sum += v
+            self._counts[idx] += n
+            self._count += n
+            self._sum += v * n
             if v < self._min:
                 self._min = v
             if v > self._max:

@@ -47,6 +47,13 @@ append, one histogram observe — nanoseconds against the
 hundreds-of-microseconds stages it wraps (the bench-smoke acceptance
 budget is ≤5% on the fleet qps cell; measured well under).
 
+**Profiler ranges** — while :func:`repro_torch.obs.profile.device_trace`
+captures, :attr:`SpanTracer.profiling` is set and every span also opens a
+``torch.profiler.record_function`` range of its own name, so each span
+lines up with the device operations launched inside it on the profiler's
+clock.  Outside that capture a span opens no range; the check costs one
+attribute read.
+
 ``TRACER`` is the process default, bound to the default registry.
 """
 from __future__ import annotations
@@ -136,6 +143,9 @@ class SpanTracer:
         # what tells an operator the ring is undersized for the load
         self._dropped = registry.counter("obs.spans_dropped") \
             if registry is not None else None
+        # set by :func:`repro_torch.obs.profile.device_trace` for its block:
+        # each span then also opens a profiler range of its name
+        self.profiling = False
 
     # -- recording --------------------------------------------------------
     def _stack(self) -> List[Span]:
@@ -158,12 +168,27 @@ class SpanTracer:
                   start=time.perf_counter(), wall_start=time.time(),
                   thread=threading.current_thread().name, attrs=attrs)
         stack.append(sp)
+        rng = _profiler_range(name) if self.profiling else None
         try:
             yield sp
         finally:
+            if rng is not None:
+                rng.__exit__(None, None, None)
             sp.end = time.perf_counter()
             stack.pop()
             self._finish(sp)
+
+    def reset_histograms(self, names) -> None:
+        """Zero the ``span.<name>`` histograms of ``names`` (a serving
+        loop's window starts from empty span histograms)."""
+        if self.registry is None:
+            return
+        for name in names:
+            h = self._hists.get(name)
+            if h is None:
+                h = self._hists[name] = \
+                    self.registry.histogram(f"span.{name}")
+            h.reset()
 
     # -- trace-context propagation ----------------------------------------
     @staticmethod
@@ -325,6 +350,15 @@ class SpanTracer:
             if self._jsonl is not None:
                 self._jsonl.close()
                 self._jsonl = None
+
+
+def _profiler_range(name: str):
+    """An entered ``torch.profiler.record_function`` range (torch is loaded
+    whenever a profiler capture is active)."""
+    from torch.profiler import record_function
+    rng = record_function(name)
+    rng.__enter__()
+    return rng
 
 
 #: The process-wide default tracer, bound to the default registry (every

@@ -10,16 +10,20 @@ The pipeline is staged featurize → plan → refine (three plain methods; the
 JAX package jits each).  A plan depends only on the query's P4→ signature,
 so the engine memoises compacted plan rows in a :class:`PlanCache` LRU keyed
 on the signature; a tick whose live rows all hit skips planning.  Each
-stage's wall time is summed into :class:`EngineStats`, with the card
-synchronised before every clock read.
+stage's span duration is summed into :class:`EngineStats`; every stage span
+ends in a synchronize of the card.
 
-Observability (``repro_torch.obs``), as in the JAX package: every tick opens
-a ``serve.tick`` span with ``query.featurize`` / ``query.plan`` /
-``query.refine`` children, arrival-to-answer latencies land in the
-``serve.latency_ms`` histogram and the queue length in the
-``serve.queue_depth`` gauge (labelled per loop), and a weakref collector
-exposes the :class:`EngineStats` rates.  :meth:`BatchedServingLoop._after_tick`
-is the between-batches hook the fleet engine drives its upkeep from.
+Observability (``repro_torch.obs``): one tick is one ``serve.tick`` span
+that covers all of it.  Its children, in order: ``serve.upload`` (the
+batch to the device), ``query.featurize`` / ``query.plan`` /
+``query.refine`` (as in the JAX package), ``serve.download`` (the answers
+to the host) and ``serve.rows`` (per-row results, latency histogram and
+stats).  :meth:`BatchedServingLoop.run` wraps its ticks in one
+``serve.run`` span.  Latencies land in the ``serve.latency_ms`` histogram
+and the queue length in the ``serve.queue_depth`` gauge (labelled per
+loop), and a weakref collector exposes the :class:`EngineStats` rates.
+:meth:`BatchedServingLoop._after_tick` is the between-batches hook the
+fleet engine drives its upkeep from; it runs after the tick span closes.
 
 The network plane's hooks, as in the JAX package: :meth:`make_ticket`
 validates a frozen request into a ticket counted against its tenant
@@ -164,27 +168,31 @@ class EngineStats:
 
     queries: int = 0
     ticks: int = 0
-    total_s: float = 0.0
+    total_s: float = 0.0                     # ticks' upload-to-refine time
+    wall_s: float = 0.0                      # whole run() calls, step() ticks
     partitions_touched: float = 0.0          # running sums (means below)
     candidates_scanned: float = 0.0
     plan_cache_hits: int = 0
     plan_cache_misses: int = 0
-    featurize_s: float = 0.0                 # per-stage wall time, summed
+    featurize_s: float = 0.0                 # per-stage span time, summed
     plan_s: float = 0.0
     refine_s: float = 0.0
 
-    def observe(self, batch_metrics: List[QueryMetrics]) -> None:
+    def observe(self, queries: int, partitions_touched: int,
+                candidates_scanned: int, latency_s: float) -> None:
+        """One tick: its query count, the sums of its rows'
+        ``partitions_touched`` / ``candidates_scanned`` and its latency."""
         self.ticks += 1
-        for m in batch_metrics:
-            self.queries += 1
-            self.partitions_touched += m.partitions_touched
-            self.candidates_scanned += m.candidates_scanned
-        if batch_metrics:
-            self.total_s += batch_metrics[0].latency_s
+        self.queries += queries
+        self.partitions_touched += int(partitions_touched)
+        self.candidates_scanned += int(candidates_scanned)
+        if queries:
+            self.total_s += latency_s
 
     @property
     def queries_per_sec(self) -> float:
-        return self.queries / self.total_s if self.total_s else 0.0
+        """Queries over the wall time of the calls that served them."""
+        return self.queries / self.wall_s if self.wall_s else 0.0
 
     @property
     def mean_partitions_touched(self) -> float:
@@ -249,10 +257,18 @@ class BatchedServingLoop:
 
         REGISTRY.add_collector(_collect, loop=self.obs_label)
 
+    #: the spans a tick (and a ``run`` call) opens: their process-wide
+    #: ``span.<name>`` histograms restart with :meth:`reset_metrics`
+    TICK_SPANS = ("serve.run", "serve.tick", "serve.upload",
+                  "query.featurize", "query.plan", "query.refine",
+                  "serve.download", "serve.rows")
+
     def reset_metrics(self) -> None:
-        """Zero this loop's aggregate stats and latency histogram."""
+        """Zero this loop's aggregate stats, latency histogram and the
+        span histograms of :data:`TICK_SPANS`."""
         self.stats = EngineStats()
         self.latency_hist.reset()
+        TRACER.reset_histograms(self.TICK_SPANS)
 
     def capture_device_trace(self, log_dir):
         """Opt-in ``torch.profiler`` capture of everything this loop runs
@@ -396,8 +412,9 @@ class BatchedServingLoop:
                              live=len(tickets), traces=ntraces) as tick:
                 dist, gid, touched, scanned, dt = \
                     self._execute(qbatch, len(tickets))
-            self._finish_batch(tickets, dist, gid, touched, scanned, dt,
-                               tick_span=tick)
+                self._finish_batch(tickets, dist, gid, touched, scanned, dt,
+                                   tick_span=tick)
+            self.stats.wall_s += tick.duration_ms * 1e-3
             self._after_tick()
         return len(tickets)
 
@@ -414,35 +431,39 @@ class BatchedServingLoop:
 
     def _finish_batch(self, tickets: List[QueryTicket], dist, gid,
                       touched, scanned, dt: float, tick_span=None) -> None:
-        """Complete one tick's tickets: typed results (echoing each
-        ticket's trace id and the ``serve.tick`` span), the legacy
-        write-back, tenant release, latency histogram and stats."""
-        done_at = time.perf_counter()
-        fill = len(tickets) / self.batch_size
-        metrics = []
-        for i, t in enumerate(tickets):
-            req = t.request
-            kq = req.k or self.k
-            qm = QueryMetrics(partitions_touched=int(touched[i]),
-                              candidates_scanned=int(scanned[i]),
-                              latency_s=dt, batch_fill=fill)
-            t.result = api.QueryResult(
-                request_id=req.request_id, dist=dist[i, :kq], gid=gid[i, :kq],
-                partitions_touched=qm.partitions_touched,
-                candidates_scanned=qm.candidates_scanned,
-                latency_ms=(done_at - t.submitted_at) * 1e3, batch_fill=fill,
-                trace_id=t.trace.trace_id if t.trace is not None else 0,
-                parent_span_id=tick_span.span_id
-                if tick_span is not None else 0)
-            if t.legacy is not None:      # thin adapter: mutate in place
-                t.legacy.dist, t.legacy.gid = dist[i, :kq], gid[i, :kq]
-                t.legacy.metrics = qm
-                t.legacy.done = True
-            self._release_tenant(t)
-            t.done = True
-            metrics.append(qm)
-            self.latency_hist.observe(t.result.latency_ms)
-        self.stats.observe(metrics)
+        """Complete one tick's tickets, inside a ``serve.rows`` span: typed
+        results (echoing each ticket's trace id and the ``serve.tick``
+        span), the legacy write-back, tenant release, latency histogram
+        (one observe per ticket: their waits differ) and stats."""
+        with TRACER.span("serve.rows", live=len(tickets)):
+            done_at = time.perf_counter()
+            n = len(tickets)
+            fill = n / self.batch_size
+            for i, t in enumerate(tickets):
+                req = t.request
+                kq = req.k or self.k
+                qm = QueryMetrics(partitions_touched=int(touched[i]),
+                                  candidates_scanned=int(scanned[i]),
+                                  latency_s=dt, batch_fill=fill)
+                t.result = api.QueryResult(
+                    request_id=req.request_id, dist=dist[i, :kq],
+                    gid=gid[i, :kq],
+                    partitions_touched=qm.partitions_touched,
+                    candidates_scanned=qm.candidates_scanned,
+                    latency_ms=(done_at - t.submitted_at) * 1e3,
+                    batch_fill=fill,
+                    trace_id=t.trace.trace_id if t.trace is not None else 0,
+                    parent_span_id=tick_span.span_id
+                    if tick_span is not None else 0)
+                if t.legacy is not None:      # thin adapter: mutate in place
+                    t.legacy.dist, t.legacy.gid = dist[i, :kq], gid[i, :kq]
+                    t.legacy.metrics = qm
+                    t.legacy.done = True
+                self._release_tenant(t)
+                t.done = True
+                self.latency_hist.observe(t.result.latency_ms)
+            self.stats.observe(n, np.sum(touched[:n]), np.sum(scanned[:n]),
+                               dt)
 
     def step(self) -> int:
         """Serve one batch from the queue; returns #requests completed.
@@ -457,10 +478,11 @@ class BatchedServingLoop:
                              live=len(live), traces=ntraces) as tick:
                 dist, gid, touched, scanned, dt = \
                     self._execute(qbatch, len(live))
-            del self.queue[:len(live)]
-            self.queue_gauge.set(len(self.queue))
-            self._finish_batch(live, dist, gid, touched, scanned, dt,
-                               tick_span=tick)
+                del self.queue[:len(live)]
+                self.queue_gauge.set(len(self.queue))
+                self._finish_batch(live, dist, gid, touched, scanned, dt,
+                                   tick_span=tick)
+            self.stats.wall_s += tick.duration_ms * 1e-3
             self._after_tick()
         return len(live)
 
@@ -488,27 +510,34 @@ class BatchedServingLoop:
         if qn == 0:
             return (np.zeros((0, kq), np.float32),
                     np.full((0, kq), -1, np.int32), [])
+        bs = self.batch_size
         dists, gids, metrics = [], [], []
-        for lo in range(0, qn, self.batch_size):
-            chunk = queries[lo:lo + self.batch_size]
-            nlive = chunk.shape[0]
-            pad = self.batch_size - nlive
-            if pad:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((pad, chunk.shape[1]), np.float32)])
-            with TRACER.span("serve.tick", loop=self.obs_label, live=nlive):
-                dist, gid, touched, scanned, dt = self._execute(chunk, nlive)
-            for _ in range(nlive):           # direct API: no queue wait
-                self.latency_hist.observe(dt * 1e3)
-            dists.append(dist[:nlive, :kq])
-            gids.append(gid[:nlive, :kq])
-            batch_metrics = [
-                QueryMetrics(partitions_touched=int(touched[i]),
-                             candidates_scanned=int(scanned[i]),
-                             latency_s=dt, batch_fill=nlive / self.batch_size)
-                for i in range(nlive)]
-            metrics.extend(batch_metrics)
-            self.stats.observe(batch_metrics)
+        with TRACER.span("serve.run", loop=self.obs_label, queries=qn,
+                         ticks=-(-qn // bs)) as call:
+            for lo in range(0, qn, bs):
+                chunk = queries[lo:lo + bs]
+                nlive = chunk.shape[0]
+                pad = bs - nlive
+                if pad:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((pad, chunk.shape[1]), np.float32)])
+                with TRACER.span("serve.tick", loop=self.obs_label,
+                                 live=nlive):
+                    dist, gid, touched, scanned, dt = \
+                        self._execute(chunk, nlive)
+                    with TRACER.span("serve.rows", live=nlive):
+                        # direct API: no queue wait, one latency per tick
+                        self.latency_hist.observe(dt * 1e3, nlive)
+                        dists.append(dist[:nlive, :kq])
+                        gids.append(gid[:nlive, :kq])
+                        metrics.extend(
+                            QueryMetrics(partitions_touched=int(touched[i]),
+                                         candidates_scanned=int(scanned[i]),
+                                         latency_s=dt, batch_fill=nlive / bs)
+                            for i in range(nlive))
+                        self.stats.observe(nlive, np.sum(touched[:nlive]),
+                                           np.sum(scanned[:nlive]), dt)
+        self.stats.wall_s += call.duration_ms * 1e-3
         return np.concatenate(dists), np.concatenate(gids), metrics
 
 
@@ -615,25 +644,26 @@ class ClimberEngine(BatchedServingLoop):
         return out
 
     def _execute(self, qbatch: np.ndarray, nlive: int):
-        """One fixed-shape tick.  Returns host arrays + wall seconds."""
+        """One fixed-shape tick.  Returns host arrays + the seconds from
+        the upload's start to refine's end."""
         dev = self.device
-        t0 = time.perf_counter()
-        qb = torch.as_tensor(qbatch, device=dev)
-        with TRACER.span("query.featurize"):
+        with TRACER.span("serve.upload") as up:
+            qb = torch.as_tensor(qbatch, device=dev)
+            synchronize(dev)
+        with TRACER.span("query.featurize") as feat:
             p4r = self._featurize(qb)
             synchronize(dev)
-        t1 = time.perf_counter()
-        with TRACER.span("query.plan", variant=self.variant):
+        with TRACER.span("query.plan", variant=self.variant) as pl:
             sel_part, sel_lo, sel_hi, touched, scanned = \
                 self._plan_batch(p4r, nlive)
             synchronize(dev)
-        t2 = time.perf_counter()
-        with TRACER.span("query.refine"):
+        with TRACER.span("query.refine") as ref:
             dist, gid = self._refine(qb, sel_part, sel_lo, sel_hi)
             synchronize(dist.device)
-        t3 = time.perf_counter()
-        self.stats.featurize_s += t1 - t0
-        self.stats.plan_s += t2 - t1
-        self.stats.refine_s += t3 - t2
+        self.stats.featurize_s += feat.duration_ms * 1e-3
+        self.stats.plan_s += pl.duration_ms * 1e-3
+        self.stats.refine_s += ref.duration_ms * 1e-3
         to_np = lambda x: x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-        return (to_np(dist), to_np(gid), to_np(touched), to_np(scanned), t3 - t0)
+        with TRACER.span("serve.download"):
+            out = (to_np(dist), to_np(gid), to_np(touched), to_np(scanned))
+        return (*out, ref.end - up.start)

@@ -157,13 +157,17 @@ MODULES = ["serve/knn_engine.py", "fleet/fleet.py", "fleet/engine.py",
            "serve/net/client.py", "obs/sentinel.py", "obs/flight.py"]
 REF = [f"src/repro/{m}" for m in MODULES]
 PORT = [f"src/repro_torch/{m}" for m in MODULES]
+# the port's own names, beside the reference's: the tick's copies, its
+# per-row work and the span around a whole ``run`` call
+PORT_ONLY = {SPAN: {"serve.run", "serve.upload", "serve.download",
+                    "serve.rows"}}
 
 
 @pytest.mark.parametrize("pattern", [SPAN, METRIC, COLLECTED],
                          ids=["spans", "metrics", "collected"])
 def test_engine_and_fleet_names_match_reference(pattern):
     ref = _names(REF, pattern)
-    assert ref and _names(PORT, pattern) == ref
+    assert ref and _names(PORT, pattern) == ref | PORT_ONLY.get(pattern, set())
 
 
 def test_port_emits_the_span_tree_and_metrics():
