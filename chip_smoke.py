@@ -9,7 +9,12 @@ path and read just after it:
 1. **serve**: generates a z-normalised random-walk dataset on the card from
    ``--seed``, builds the CLIMBER index on the card, and serves queries
    drawn from the dataset through ``ClimberEngine`` (adaptive at batch 64,
-   k=500; ``knn`` and ``od_smallest`` one batch each).
+   k=500; ``knn`` and ``od_smallest`` one batch each), then one adaptive
+   tick of 4,096 other queries, the benchmark's tick: the batches of 64
+   take ``refine_topk``'s query-major design and the tick its
+   partition-major one, and each design's launch count must be non-zero.
+   After the counts are read, ``refine_topk`` on that tick's plan is held
+   against its plain version.
 2. **evaluation** (Fig. 7): for the main dataset and for ``sift``, ``dna``,
    ``eeg`` and ``seismic`` at ``--other-num`` series each, the exact ground
    truth of 64 queries by Dss (``GroundTruthCache`` → ``exact_knn`` → the
@@ -309,6 +314,8 @@ def ptxas_table(log: str):
 
 
 SERVE_KERNELS = ("paa", "pivot_rank", "refine_topk")
+TICK_QUERIES = 4096      # the benchmark cells' tick
+EVAL_KERNELS = ("paa", "pivot_rank", "refine_topk", "pairwise_l2", "qdots")
 EVAL_QUERIES = 64
 SCAN_CHUNK = 1 << 20          # Dss rows per pairwise_l2 launch
 
@@ -3171,8 +3178,8 @@ def main(argv=None) -> int:
                                   recall_at_k, tenant_corpus)
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels.l2 import qdots_plain, qdots_work
-    from repro_torch.kernels.refine_topk import (masked_distances, refine_topk,
-                                                 refine_work, topk_flat)
+    from repro_torch.kernels.refine_topk import (PARTITION_MAJOR_MIN, masked_distances,
+                                                 refine_topk, refine_work, topk_flat)
     from repro_torch.serve import ClimberEngine
     from repro_torch.utils.config import ClimberConfig
 
@@ -3241,14 +3248,41 @@ def main(argv=None) -> int:
         engines[variant] = (eng, dist, gid)
         say(f"serve[{variant}]: " + json.dumps(
             {k: (round(v, 3) if isinstance(v, float) else v) for k, v in row.items()}))
+    # the benchmark's tick: 4,096 queries in one adaptive tick, whose plan
+    # names each planned partition for enough queries that refine_topk
+    # takes the partition-major design
+    q_tick = make_queries(data, TICK_QUERIES, generator=torch.Generator(
+        device=dev).manual_seed(args.seed + TICK_QUERIES)).contiguous()
+    eng_t = ClimberEngine(index, batch_size=TICK_QUERIES, variant="adaptive", k=cfg.k)
+    sp_t, lo_t, hi_t = eng_t._plan(eng_t._featurize(q_tick))[:3]
+    if TICK_QUERIES * sp_t.shape[1] < PARTITION_MAJOR_MIN * store.num_partitions:
+        raise SystemExit(f"the {TICK_QUERIES}-query tick's plan (MP={sp_t.shape[1]}, "
+                         f"P={store.num_partitions}) is below the partition-major rule")
+    dist_t, _, _ = eng_t.run(q_tick.cpu().numpy())
+    st_t = eng_t.stats
+    serve["adaptive_b4096"] = {"queries": st_t.queries, "ticks": st_t.ticks,
+                               "refine_ms": st_t.refine_s / st_t.ticks * 1e3,
+                               "tick_ms": st_t.total_s / st_t.ticks * 1e3,
+                               "entries_per_partition":
+                                   TICK_QUERIES * sp_t.shape[1] / store.num_partitions}
+    say("serve[adaptive_b4096]: " + json.dumps(serve["adaptive_b4096"], default=float))
+    if not np.isfinite(dist_t).all():
+        raise SystemExit("the 4,096-query tick's answers are not finite")
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     say(f"serve-path launches: {launches}")
     report["serve"] = serve
     report["launches_serve"] = launches
     missing = [k for k in SERVE_KERNELS if launches[k] <= 0]
+    pm = launches["refine_topk.partition_major"]
+    if pm <= 0 or launches["refine_topk"] - pm <= 0:
+        missing.append(f"refine_topk by design: {pm} partition-major of "
+                       f"{launches['refine_topk']}")
     if missing:
         raise SystemExit(f"kernels not launched on the serve path: {missing}")
+    report["refine_checks_serve"] = refine_plan_checks(
+        "serve", q_tick, cfg.k, [("adaptive b4096", store, (sp_t, lo_t, hi_t))])
+    del eng_t, sp_t, lo_t, hi_t, dist_t
 
     # ---- where one serving tick's time goes (a separate, traced tick) -----
     from torch.profiler import ProfilerActivity, profile
@@ -3373,7 +3407,7 @@ def main(argv=None) -> int:
     report["tenant"] = tenant
     report["launches_eval"] = eval_launches
     report["eval_seconds"] = eval_s
-    missing = [k for k, v in eval_launches.items() if v <= 0]
+    missing = [k for k in EVAL_KERNELS if eval_launches[k] <= 0]
     if missing:
         raise SystemExit(f"kernels not launched on the evaluation path: {missing}")
     torch.cuda.empty_cache()

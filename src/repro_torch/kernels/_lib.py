@@ -38,9 +38,14 @@ _SIGNATURES = {
     "climber_paa": (_I, [_P, _P, _I64, _I, _I, _P]),
     "climber_pivot_rank": (_I, [_P, _P, _P, _I64, _I, _I, _I, _I, _P]),
     "climber_pivot_rank_smem": (_I64, [_I, _I, _I]),
-    "climber_refine_topk": (_I, [_P] * 11 + [_I] * 6 + [_P]),
-    "climber_refine_partial_smem": (_I64, [_I, _I, _I]),
+    "climber_refine_topk": (_I, [_P] * 12 + [_I] * 8 + [_P]),
+    "climber_refine_group": (_I, [_I, _I]),
+    "climber_refine_scratch_bytes": (_I64, [_I] * 6),
     "climber_refine_merge_smem": (_I64, [_I, _I]),
+    "climber_refine_topk_query_major": (_I, [_P] * 12 + [_I] * 7 + [_P]),
+    "climber_refine_partial_scratch_bytes": (_I64, [_I] * 4),
+    "climber_refine_partial_smem": (_I64, [_I, _I, _I]),
+    "climber_refine_partial_merge_smem": (_I64, [_I, _I]),
     "climber_pairwise_l2": (_I, [_P, _P, _P, _I, _I64, _I, _P]),
     "climber_qdots": (_I, [_P, _P, _P, _I, _I64, _I, _P]),
     "climber_error_string": (ctypes.c_char_p, [_I]),

@@ -15,13 +15,15 @@ import torch
 from repro_torch.kernels.l2 import pairwise_l2, qdots
 from repro_torch.kernels.paa_kernel import paa
 from repro_torch.kernels.pivot_rank import pivot_rank
-from repro_torch.kernels.refine_topk import refine_topk
+from repro_torch.kernels.refine_topk import _partition_major, refine_topk
 
 # the plan must be sorted by partition id (see kernels/refine_topk.py)
 fused_refine_topk = refine_topk
 
 KERNELS = {"paa": paa, "pivot_rank": pivot_rank, "refine_topk": refine_topk,
-           "pairwise_l2": pairwise_l2, "qdots": qdots}
+           "pairwise_l2": pairwise_l2, "qdots": qdots,
+           # the refine_topk launches that took the partition-major design
+           "refine_topk.partition_major": _partition_major}
 
 __all__ = ["paa", "pivot_rank", "pairwise_l2", "qdots", "batched_query_dots",
            "fused_refine_topk", "fused_refine_topk_device_plan",

@@ -10,26 +10,51 @@ the ``cap`` slots of partition ``sel_part[q, s]`` at flat index
 Output: the ``k`` best ``(d², gid)`` by ``(d², flat index)``, ``3.4e38``/``-1``
 where fewer than ``k`` candidates exist.
 
-The kernel is ``csrc/refine_topk.cu``: a plan kernel that gives each query
-blocks in proportion to its live slots, partial k-best blocks that scan tags
-first and then stream the kept rows with many loads in flight, and a
-per-query merge of the sorted partial lists by merge path, all by the same
-exact key (see the source for the design).  It is bound by HBM bytes: each
-distinct kept record's row and norm once, and 8 bytes of tags per live slot.
-The plain version gathers the ``[Q, MP, cap, n]`` candidate rows, so it only
-fits small plans.
+The kernel is ``csrc/refine_topk.cu``, in two designs that give the same
+bits (see the source).  Partition-major, for plans whose partitions many
+queries name: the plan is inverted on the card into (query, partition)
+segments grouped by partition; a block reads each planned partition's tags
+once, streams the rows some query of its item keeps into shared memory
+once, and scores every such query from there, each dot summed in the
+query-major design's order; each query's per-partition k best go to a few
+lists of its own, cut early by a bound on its k-th key that every block
+lowers, and a per-query kernel sorts the k best of its lists.  Query-major,
+for the rest: blocks per query in proportion to its live slots stream its
+kept rows, and a per-query merge of their sorted lists by merge path.  Both
+are bound by HBM bytes: each distinct kept record's row and norm once, and
+the tags.  The plain version gathers the ``[Q, MP, cap, n]`` candidate rows,
+so it only fits small plans.
+
+Every call records how much sharing its plan has, live (query, partition)
+pairs over distinct planned partitions, in the histogram
+``refine.queries_per_partition`` of ``repro_torch.obs.registry.REGISTRY``:
+on the card either design counts it (the partition-major design in its
+inversion, the query-major one in its merge), and it is read back into
+pinned memory with no sync of its own and observed at a later call (or by
+:func:`flush_sharing`); the plain version observes it from the plan.
 """
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.obs.registry import REGISTRY
 
 PAD_D2 = 3.4e38          # squared-distance sentinel of a pad answer
-MAX_SPLITS = 64
+SHARING = "refine.queries_per_partition"
+MAX_LISTS = 64           # lists a query's partitions' k-best go to, at most
+MAX_SPLITS = 64          # blocks a query gets in the query-major design, at most
+# plan entries a partition (Q * MP / P, pads included) from which a call
+# takes the partition-major design.  On the cells' index the query-major
+# design was faster up to 263 (1,024 adaptive / 512 spend 4 queries), the
+# partition-major one from 395 (768 spend 4 queries) and at the ticks'
+# 1,054-2,108; the smoke's and the kNN-LM's batches of 64 have 5-27
+# (PERF.md §6)
+PARTITION_MAJOR_MIN = 320
 
 
 def dedupe_segments(sel_part: torch.Tensor, incl: torch.Tensor) -> torch.Tensor:
@@ -139,16 +164,88 @@ def refine_topk_plain(data, norms, rec_dfs, rec_gid, queries,
     return topk_flat(d2, gid, k)
 
 
+def plan_sharing(sel_part: torch.Tensor):
+    """``(pairs, partitions)`` of a partition-sorted plan: its live
+    (query, partition) pairs (an entry naming a partition its query named
+    already adds none) and its distinct planned partitions, the two counts
+    either design of the kernel makes on the card."""
+    live = sel_part >= 0
+    new = live.clone()
+    new[:, 1:] &= sel_part[:, 1:] != sel_part[:, :-1]
+    return int(new.sum()), int(torch.unique(sel_part[live]).numel())
+
+
+def observe_sharing(pairs: int, partitions: int) -> None:
+    """One observation of ``refine.queries_per_partition``: pairs over
+    partitions (0 for a plan of pads only)."""
+    REGISTRY.histogram(SHARING).observe(pairs / partitions if partitions else 0.0)
+
+
+class _SharingReadback:
+    """The kernel's two counts of each call, copied into pinned memory
+    behind the call on its stream and observed once the copy has landed,
+    at a later call or at :func:`flush_sharing`: no call waits for its own."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._pending = []
+
+    def push(self, stats: torch.Tensor) -> None:
+        host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+        host.copy_(stats, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(stats.device))
+        with self._lock:
+            self._pending.append((done, host))
+
+    def drain(self, wait: bool = False) -> None:
+        """Observe every landed count, in call order (``wait``: all)."""
+        while True:
+            with self._lock:
+                if not self._pending:
+                    return
+                done, host = self._pending[0]
+                if not (wait or done.query()):
+                    return
+                self._pending.pop(0)
+            done.synchronize()
+            observe_sharing(int(host[0]), int(host[1]))
+
+
+_SHARING = _SharingReadback()
+
+
+def flush_sharing() -> None:
+    """Observe every call's sharing count still in flight (waits for them)."""
+    _SHARING.drain(wait=True)
+
+
 @functools.lru_cache(maxsize=None)
 def pick_splits(k: int) -> int:
-    """The most blocks a query may get: ``MAX_SPLITS``, or fewer where the
-    merge kernel's shared memory holds fewer lists of k.  The kernel gives
-    each query a share of them in proportion to its live slots."""
+    """The most blocks a query may get in the query-major design:
+    ``MAX_SPLITS``, or fewer where its merge kernel's shared memory holds
+    fewer lists of k.  The kernel gives each query a share of them in
+    proportion to its live slots."""
     lib = _lib.library()
     s = MAX_SPLITS
-    while s > 1 and lib.climber_refine_merge_smem(s, k) > _lib.SMEM_LIMIT:
+    while s > 1 and lib.climber_refine_partial_merge_smem(s, k) > _lib.SMEM_LIMIT:
         s -= 1
     return s
+
+
+def plan_lists(qn: int, mp: int, p: int, n: int, k: int, group: int) -> int:
+    """Lists of k keys a query gets in the partition-major design: as many
+    as the query-major design's scratch (its partial lists,
+    :func:`pick_splits` a query) leaves room for beside the inverted plan;
+    at least 8, and at most what the merge block holds."""
+    lib = _lib.library()
+    most = MAX_LISTS
+    while most > 1 and lib.climber_refine_merge_smem(most, k) > _lib.SMEM_LIMIT:
+        most -= 1
+    budget = qn * (pick_splits(k) * k + 2) * 8
+    fixed = lib.climber_refine_scratch_bytes(qn, mp, p, k, 0, group)
+    fit = (budget - fixed) // (qn * (8 * k + 4))
+    return max(min(8, most), min(most, fit))
 
 
 def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
@@ -160,14 +257,20 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
     reference dry-run's ``sel_rows`` rule), so ``kept_pairs``,
     ``unique_kept_records`` and ``live_slots`` are all ``Q · MP · cap``.
 
+    On the card a call whose plan has at least ``PARTITION_MAJOR_MIN``
+    entries a partition (``Q · MP / P``, known without a sync) takes the
+    partition-major design, and any other the query-major one; both give
+    the same answer bit for bit.
+
     Args:
       data / norms / rec_dfs / rec_gid: the store, ``[P, cap, n]`` f32 /
         ``[P, cap]`` f32, i32, i32.
       queries: ``[Q, n]`` f32.
       sel_part / sel_lo / sel_hi: ``[Q, MP]`` int32, sorted by partition.
       k: answers per query.
-      splits: the most blocks a query may get (None: :func:`pick_splits`);
-        any value gives the same answer.
+      splits: the most blocks a query may get in the query-major design,
+        which a value here takes (None: :func:`pick_splits`); any value
+        gives the same answer.
 
     Returns:
       (d2, gid): ``[Q, k]`` ascending squared ED (``PAD_D2`` past the
@@ -175,6 +278,7 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
     """
     tensors = (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi)
     if not _lib.on_card(*tensors):
+        observe_sharing(*plan_sharing(sel_part))
         return refine_topk_plain(*tensors, k)
     qn, n = queries.shape
     mp = sel_part.shape[1]
@@ -195,35 +299,81 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
     if data.shape != (p, cap, n) or rec_dfs.shape != (p, cap) \
             or rec_gid.shape != (p, cap):
         raise ValueError("store columns disagree on [P, cap, n]")
-    if mp * cap >= 2**31 or k < 1:
-        raise ValueError(f"refine kernel needs MP*cap < 2^31 and k >= 1 "
-                         f"(MP={mp}, cap={cap}, k={k})")
+    if mp * cap >= 2**31 or qn * mp >= 2**31 or k < 1:
+        raise ValueError(f"refine kernel needs MP*cap < 2^31, Q*MP < 2^31 and "
+                         f"k >= 1 (Q={qn}, MP={mp}, cap={cap}, k={k})")
     if dev.type == "meta":
         rows = qn * mp * cap
         return _lib.meta_outputs(refine_topk_work(rows, rows, rows, qn, mp, n, k),
                                  ((qn, k), torch.float32), ((qn, k), torch.int32))
+    if splits is None and qn * mp >= PARTITION_MAJOR_MIN * p:
+        return _partition_major(*tensors, k)
+    return _query_major(*tensors, k, splits=splits)
+
+
+def _launch(entry, tensors, k: int, scratch_bytes: int, *sizes):
+    """One call of a design's C entry on validated, non-empty card tensors
+    (``sizes``: its integer arguments): its scratch, the outputs, and the
+    plan's two sharing counts, read back with no sync of their own."""
+    queries = tensors[4]
+    dev = queries.device
+    d2 = torch.empty((queries.shape[0], k), dtype=torch.float32, device=dev)
+    gid = torch.empty((queries.shape[0], k), dtype=torch.int32, device=dev)
+    scratch = torch.empty((scratch_bytes + 7) // 8, dtype=torch.int64, device=dev)
+    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    _SHARING.drain()
+    with torch.cuda.device(dev):
+        _lib.check(entry(*(t.data_ptr() for t in tensors), scratch.data_ptr(),
+                         stats.data_ptr(), d2.data_ptr(), gid.data_ptr(), *sizes,
+                         _lib.stream(dev)), "refine_topk")
+        _SHARING.push(stats)
+    _lib.count_launch(refine_topk)
+    return d2, gid
+
+
+def _partition_major(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
+                     sel_hi, k: int, *, group: Optional[int] = None,
+                     lists: Optional[int] = None):
+    """The partition-major design on the card, with at most ``group``
+    queries an item (None: as many as the block's shared memory holds) and
+    ``lists`` lists a query (None: :func:`plan_lists`); any value gives the
+    same answer.  Also counted in ``_partition_major.launches``."""
+    (qn, n), mp, (p, cap) = queries.shape, sel_part.shape[1], norms.shape
+    lib = _lib.library()
+    most = lib.climber_refine_group(n, k)
+    if most < 1:
+        raise ValueError(f"refine kernel: n={n}, k={k} exceed the block's shared memory")
+    g = min(most, group) if group else most
+    nl = lists or plan_lists(qn, mp, p, n, k, g)
+    if lib.climber_refine_merge_smem(nl, k) > _lib.SMEM_LIMIT:
+        raise ValueError(f"refine kernel: {nl} lists x k={k} exceed the merge "
+                         f"block's shared memory")
+    out = _launch(lib.climber_refine_topk,
+                  (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi), k,
+                  lib.climber_refine_scratch_bytes(qn, mp, p, k, nl, g),
+                  qn, mp, p, cap, n, k, nl, g)
+    _lib.count_launch(_partition_major)
+    return out
+
+
+def _query_major(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
+                 sel_hi, k: int, *, splits: Optional[int] = None):
+    """The query-major design on the card, with at most ``splits`` blocks a
+    query (None: :func:`pick_splits`); any value gives the same answer."""
+    (qn, n), mp, (p, cap) = queries.shape, sel_part.shape[1], norms.shape
     lib = _lib.library()
     if lib.climber_refine_partial_smem(mp, n, k) > _lib.SMEM_LIMIT:
         raise ValueError(f"refine kernel: MP={mp}, n={n}, k={k} exceed the "
                          f"block's shared memory")
     s = splits or pick_splits(k)
-    if lib.climber_refine_merge_smem(s, k) > _lib.SMEM_LIMIT:
+    if lib.climber_refine_partial_merge_smem(s, k) > _lib.SMEM_LIMIT:
         raise ValueError(f"refine kernel: {s} splits x k={k} exceed the merge "
                          f"block's shared memory")
-    # the partial lists [Q, splits, k], then a plan summary and a work
-    # counter per query
-    partial = torch.empty(qn * (s * k + 2), dtype=torch.int64, device=dev)
-    d2 = torch.empty((qn, k), dtype=torch.float32, device=dev)
-    gid = torch.empty((qn, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _lib.check(lib.climber_refine_topk(
-            data.data_ptr(), norms.data_ptr(), rec_dfs.data_ptr(),
-            rec_gid.data_ptr(), queries.data_ptr(), sel_part.data_ptr(),
-            sel_lo.data_ptr(), sel_hi.data_ptr(), partial.data_ptr(),
-            d2.data_ptr(), gid.data_ptr(), qn, mp, cap, n, k, s,
-            _lib.stream(dev)), "refine_topk")
-    _lib.count_launch(refine_topk)
-    return d2, gid
+    return _launch(lib.climber_refine_topk_query_major,
+                   (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi), k,
+                   lib.climber_refine_partial_scratch_bytes(qn, p, k, s),
+                   qn, mp, p, cap, n, k, s)
 
 
 refine_topk.launches = 0
+_partition_major.launches = 0

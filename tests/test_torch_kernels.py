@@ -7,6 +7,7 @@ CUDA tests still collect.  Tests marked ``cuda`` skip themselves where no
 card is present; run them on one with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
+import ctypes
 import types
 
 import numpy as np
@@ -18,8 +19,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _lib, ops, ref  # noqa: E402
 from repro_torch.kernels.paa_kernel import paa_plain, paa_sequential  # noqa: E402
 from repro_torch.kernels.pivot_rank import pivot_distances_plain, pivot_rank_plain  # noqa: E402
+from repro_torch.kernels import refine_topk as RT  # noqa: E402
 from repro_torch.kernels.refine_topk import (PAD_D2, masked_distances, refine_topk,  # noqa: E402
                                              refine_topk_plain, refine_work)
+from repro_torch.obs.registry import REGISTRY  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -384,9 +387,13 @@ def test_cuda_refine_matches_plain(cuda, name):
     args = [torch.as_tensor(a).to(cuda) for a in (*store, q, *plan)]
     d_k, g_k = refine_topk(*args, k)
     d_1, g_1 = refine_topk(*args, k, splits=1)
+    d_g, g_g = RT._partition_major(*args, k, group=1, lists=1)
     torch.cuda.synchronize()
-    # the answer does not depend on how the candidates were split
+    # the answer does not depend on the design or how its work was divided:
+    # one block a query; one query a block and one list a query (every
+    # partition's k best merged into it under its lock)
     assert torch.equal(d_k, d_1) and torch.equal(g_k, g_1)
+    assert torch.equal(d_k, d_g) and torch.equal(g_k, g_g)
     d_p, g_p = refine_topk_plain(*args, k)
     assert_topk_match(d_k.cpu().numpy(), g_k.cpu().numpy(), d_p.cpu().numpy(),
                       g_p.cpu().numpy(), q, store[1])
@@ -437,21 +444,34 @@ def test_cuda_refine_k500_shared_partitions_any_split(cuda, n):
     """k = 500 over cap 4,100, 64 queries sharing 12 partitions, one all-pad
     row, rows of 256 floats (the configuration's width), 30 (scalar loads)
     and 384 (float4 loads in runtime loops): the kernel keeps the rule
-    against the plain version, and one block per query, the most allowed
-    and the default give the same bits."""
+    against the plain version, and either design, with any number of blocks
+    a query, of queries a block or of lists a query, gives the same bits."""
     store, q, (sp, lo, hi) = big_refine_inputs(3, n=n)
     sp[5] = -1                                          # an all-pad row
     args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
     lib = _lib.library()
     most = next(s for s in range(64, 0, -1)
                 if lib.climber_refine_merge_smem(s, 500) <= _lib.SMEM_LIMIT)
-    n0 = ops.launch_counts()["refine_topk"]
-    got = {s: refine_topk(*args, 500, splits=s) for s in (None, 1, most)}
+    n0 = ops.launch_counts()
+    qm, pm = RT._query_major, RT._partition_major
+    divisions = {"default": (refine_topk, {}), "one block": (refine_topk, dict(splits=1)),
+                 "most blocks": (qm, dict(splits=RT.pick_splits(500))),
+                 "one query": (pm, dict(group=1)), "odd": (pm, dict(group=5, lists=3)),
+                 "most lists": (pm, dict(group=16, lists=most))}
+    got = {name: fn(*args, 500, **kw) for name, (fn, kw) in divisions.items()}
     torch.cuda.synchronize()
-    assert ops.launch_counts()["refine_topk"] == n0 + 3
-    for s in (1, most):
-        assert torch.equal(got[None][0], got[s][0]) and torch.equal(got[None][1], got[s][1])
-    d_k, g_k = got[None]
+    # every call counts as a refine_topk launch; those of the partition-major
+    # design (the three here, and the default where the rule takes it) also
+    # count as that design's
+    n1 = ops.launch_counts()
+    assert n1["refine_topk"] == n0["refine_topk"] + len(divisions)
+    default_pm = 64 * sp.shape[1] >= RT.PARTITION_MAJOR_MIN * store[1].shape[0]
+    assert n1["refine_topk.partition_major"] == \
+        n0["refine_topk.partition_major"] + 3 + default_pm
+    for name in divisions:
+        assert torch.equal(got["default"][0], got[name][0])
+        assert torch.equal(got["default"][1], got[name][1])
+    d_k, g_k = got["default"]
     assert bool((g_k[5] == -1).all()) and bool((d_k[5] >= PAD_D2).all())
     d_p, g_p = refine_topk_plain(*args, 500)
     assert_refine_rule(d_k, g_k, d_p, g_p, args[4], args[1])
@@ -459,9 +479,10 @@ def test_cuda_refine_k500_shared_partitions_any_split(cuda, n):
 
 @pytest.mark.cuda
 def test_cuda_refine_pool_beyond_every_block_scratch(cuda):
-    """One block per query over 10 fully kept entries of cap 4,100: 41,000
-    kept rows, past the block's list of kept indices and its key buffer, so
-    the block merges many times."""
+    """Three queries over 10 fully kept entries of cap 4,100: 41,000 kept
+    rows each, past a block's list of kept slots and its key buffer (merged
+    or cut many times), in both designs; with one list a query every
+    partition's k best is merged into it."""
     store = make_store(4, p=10, cap=4100, n=64, ndfs=1)
     q = np.random.default_rng(5).standard_normal((3, 64)).astype(np.float32)
     sp = np.tile(np.arange(10, dtype=np.int32), (3, 1))
@@ -469,8 +490,10 @@ def test_cuda_refine_pool_beyond_every_block_scratch(cuda):
     args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
     d1, g1 = refine_topk(*args, 500, splits=1)
     d_all, g_all = refine_topk(*args, 500)
+    d_pm, g_pm = RT._partition_major(*args, 500, group=2, lists=1)
     torch.cuda.synchronize()
     assert torch.equal(d1, d_all) and torch.equal(g1, g_all)
+    assert torch.equal(d1, d_pm) and torch.equal(g1, g_pm)
     assert bool((g1 >= 0).all())
     d_p, g_p = refine_topk_plain(*args, 500)
     assert_refine_rule(d1, g1, d_p, g_p, args[4], args[1])
@@ -479,11 +502,210 @@ def test_cuda_refine_pool_beyond_every_block_scratch(cuda):
 @pytest.mark.cuda
 def test_cuda_refine_query_alone_equals_its_row_in_a_shared_batch(cuda):
     """A query's answer does not depend on the batch it rides in, nor on the
-    other queries that share its partitions: bit-equal alone and in 64."""
+    other queries that share its partitions, in either design: bit-equal
+    alone and in 64."""
     store, q, (sp, lo, hi) = big_refine_inputs(6, pad_frac=0.0)
     args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
     d64, g64 = refine_topk(*args, 500)
+    d64_pm, g64_pm = RT._partition_major(*args, 500, group=16)
+    assert torch.equal(d64, d64_pm) and torch.equal(g64, g64_pm)
     for i in (0, 17, 63):
         one = [a[i:i + 1].contiguous() for a in args[4:]]
         d1, g1 = refine_topk(*args[:4], *one, 500)
         assert torch.equal(d1[0], d64[i]) and torch.equal(g1[0], g64[i])
+
+
+def tied_refine_inputs(seed, q=1024, p=16, cap=512, n=256, mp=6, ndfs=6):
+    """Integer rows and queries (every dot, norm and d² exact in fp32, so
+    the kernel's d² is the plain version's bit for bit), each row repeated
+    in several slots (d² ties everywhere), and a batch of ``q`` queries over
+    ``p`` partitions, each naming partitions in overlapping intervals."""
+    rng = np.random.default_rng(seed)
+    store = list(make_store(seed, p=p, cap=cap, n=n, ndfs=ndfs))
+    base = rng.integers(-3, 4, size=(cap // 4, n)).astype(np.float32)
+    live = store[3] >= 0
+    data = base[rng.integers(0, base.shape[0], size=(p, cap))]
+    data[~live] = 0.0
+    store[0] = data
+    store[1] = np.sum(data.astype(np.float64) ** 2, -1).astype(np.float32)
+    sp, lo, hi = make_plan(seed + 1, q=q, mp=mp, p=p, ndfs=ndfs, pad_frac=0.1)
+    qs = rng.integers(-3, 4, size=(q, n)).astype(np.float32)
+    return store, qs, (sp, lo, hi)
+
+
+@pytest.mark.cuda
+def test_cuda_refine_heavily_shared_batch_ties_to_the_lowest_flat_index(cuda):
+    """1,024 queries over 16 partitions (about 300 queries a partition,
+    overlapping intervals, repeated partitions), rows repeated so d² ties
+    everywhere, all arithmetic exact: the kernel's answer (the partition-
+    major design's, at this sharing) is the plain version's bit for bit,
+    ties going to the lowest flat index; and a query alone (the query-major
+    design's) is bit-equal to its row in the batch."""
+    store, q, plan = tied_refine_inputs(11)
+    args = [torch.as_tensor(a).to(cuda) for a in (*store, q, *plan)]
+    assert 1024 * plan[0].shape[1] >= RT.PARTITION_MAJOR_MIN * 16
+    d_k, g_k = refine_topk(*args, 500)
+    d_p, g_p = refine_topk_plain(*args, 500)
+    torch.cuda.synchronize()
+    assert_refine_rule(d_k, g_k, d_p, g_p, args[4], args[1])
+    assert torch.equal(d_k, d_p) and torch.equal(g_k, g_p)
+    for i in (0, 511, 1023):
+        one = [a[i:i + 1].contiguous() for a in args[4:]]
+        d1, g1 = refine_topk(*args[:4], *one, 500)
+        assert torch.equal(d1[0], d_k[i]) and torch.equal(g1[0], g_k[i])
+
+
+@pytest.mark.cuda
+def test_cuda_refine_repeated_partition_attributes_to_the_first_entry(cuda):
+    """One query names partition 3 in two entries whose intervals overlap:
+    a record both cover is kept once, at the first entry, so with equal d²
+    it ranks before a record only the second entry keeps; the answer is the
+    plain version's bit for bit (exact integer arithmetic)."""
+    store, _, _ = tied_refine_inputs(12, q=1, p=8, cap=256, n=64)
+    q = np.random.default_rng(13).integers(-3, 4, size=(1, 64)).astype(np.float32)
+    sp = np.array([[-1, 1, 3, 3, 6]], np.int32)
+    lo = np.array([[0, 0, 1, 0, 2]], np.int32)
+    hi = np.array([[0, 6, 4, 6, 5]], np.int32)
+    args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
+    d_k, g_k = refine_topk(*args, 300)
+    d_pm, g_pm = RT._partition_major(*args, 300, group=1)
+    d_p, g_p = refine_topk_plain(*args, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_p) and torch.equal(g_k, g_p)
+    assert torch.equal(d_pm, d_p) and torch.equal(g_pm, g_p)
+    kept = g_k[g_k >= 0]
+    assert kept.numel() == torch.unique(kept).numel()        # each record once
+
+
+@pytest.mark.cuda
+def test_cuda_refine_lm_width_k16(cuda):
+    """The kNN-LM's shapes: rows of 2,048 floats, K = 16, 64 queries sharing
+    partitions: the rule against the plain version, and the same bits with
+    the partition-major design with one list and one query a block."""
+    store, q, (sp, lo, hi) = big_refine_inputs(21, q=64, p=24, cap=300, n=2048, mp=12)
+    args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
+    d_k, g_k = refine_topk(*args, 16)
+    d_1, g_1 = RT._partition_major(*args, 16, group=1, lists=1)
+    d_p, g_p = refine_topk_plain(*args, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_1) and torch.equal(g_k, g_1)
+    assert_refine_rule(d_k, g_k, d_p, g_p, args[4], args[1])
+
+
+# ---------------------------------------------------------------------------
+# refine.queries_per_partition (CPU)
+# ---------------------------------------------------------------------------
+def test_plan_sharing_counts_query_partition_pairs():
+    """A hand-made plan: query 0 names partitions 2, 5, 5 (one pair twice),
+    query 1 names 5 and 7, query 2 only pads: 4 live (query, partition)
+    pairs over 3 distinct partitions."""
+    sp = torch.tensor([[-1, 2, 5, 5], [-1, -1, 5, 7], [-1, -1, -1, -1]], dtype=torch.int32)
+    assert RT.plan_sharing(sp) == (4, 3)
+    assert RT.plan_sharing(torch.full((2, 3), -1, dtype=torch.int32)) == (0, 0)
+
+
+def test_cpu_refine_observes_sharing_once_per_call():
+    """Each refine call on the plain path records one observation: live
+    (query, partition) pairs over distinct partitions, from its plan."""
+    store, q, (sp, lo, hi), k = case_inputs("mixed")
+    t = [torch.as_tensor(a) for a in (*store, q, sp, lo, hi)]
+    pairs, parts = RT.plan_sharing(t[5])
+    h = REGISTRY.histogram(RT.SHARING)
+    n0, s0 = h.count, h.sum
+    for i in range(3):
+        refine_topk(*t, k)
+        assert h.count == n0 + i + 1
+    assert h.sum - s0 == pytest.approx(3 * pairs / parts)
+
+
+class _Landed:
+    """A stand-in for a CUDA event: landed or not."""
+
+    def __init__(self, landed):
+        self.landed = landed
+        self.waited = False
+
+    def query(self):
+        return self.landed
+
+    def synchronize(self):
+        self.waited = True
+
+
+def test_sharing_readback_observes_landed_counts_in_call_order():
+    """The card's counts are observed once each, in call order, when their
+    copy has landed; a count still in flight (and every later one) waits
+    for a later call or for a flush."""
+    rb = RT._SharingReadback()
+    h = REGISTRY.histogram(RT.SHARING)
+    n0, s0 = h.count, h.sum
+    late = _Landed(False)
+    rb._pending = [(_Landed(True), torch.tensor([10, 5])), (late, torch.tensor([9, 3])),
+                   (_Landed(True), torch.tensor([8, 8]))]
+    rb.drain()
+    assert h.count == n0 + 1 and h.sum - s0 == pytest.approx(2.0)
+    rb.drain()
+    assert h.count == n0 + 1
+    rb.drain(wait=True)
+    assert late.waited and h.count == n0 + 3
+    assert h.sum - s0 == pytest.approx(2.0 + 3.0 + 1.0)
+    rb.drain(wait=True)
+    assert h.count == n0 + 3
+
+
+@pytest.mark.parametrize("qn, design", [(31, "query_major"), (32, "partition_major")])
+def test_refine_design_follows_plan_entries_per_partition(monkeypatch, qn, design):
+    """On the card a call takes the partition-major design from
+    ``PARTITION_MAJOR_MIN`` plan entries a partition (``Q · MP / P``, pads
+    included) and the query-major one below; ``splits`` takes the
+    query-major design at any sharing.  (CPU tensors, the card's route
+    forced, the designs stubbed.)"""
+    calls = []
+    monkeypatch.setattr(RT._lib, "on_card", lambda *t: True)
+    for name in ("_partition_major", "_query_major"):
+        monkeypatch.setattr(RT, name, lambda *a, _n=name[1:], **kw: calls.append((_n, kw)))
+    p, cap, n = 2, 4, 8
+    mp = RT.PARTITION_MAJOR_MIN * p // 32              # 32 queries meet the rule
+    store = (torch.zeros((p, cap, n)), torch.zeros((p, cap)),
+             torch.zeros((p, cap), dtype=torch.int32), torch.zeros((p, cap), dtype=torch.int32))
+    plan = [torch.zeros((qn, mp), dtype=torch.int32) for _ in range(3)]
+    RT.refine_topk(*store, torch.zeros((qn, n)), *plan, 5)
+    RT.refine_topk(*store, torch.zeros((qn, n)), *plan, 5, splits=3)
+    first = {} if design == "partition_major" else {"splits": None}
+    assert calls == [(design, first), ("query_major", {"splits": 3})]
+
+
+def test_c_signatures_match_the_kernel_sources():
+    """Every C entry the package binds is declared in ``csrc/`` with as many
+    arguments, each a pointer where the binding passes one and an integer
+    where it passes one."""
+    import re
+    decl = {}
+    for src in _lib.sources():
+        text = src.read_text()
+        for m in re.finditer(r"CLIMBER_API\s+[\w\s*]+?\b(climber_\w+)\s*\(([^)]*)\)", text):
+            args = [a.strip() for a in m.group(2).split(",") if a.strip()]
+            decl[m.group(1)] = ["p" if "*" in a else "i" for a in args]
+    for name, (_, argtypes) in _lib._SIGNATURES.items():
+        assert name in decl, name
+        kinds = ["p" if a is ctypes.c_void_p else "i" for a in argtypes]
+        assert kinds == decl[name], name
+
+
+@pytest.mark.cuda
+def test_cuda_refine_observes_sharing_once_per_call_in_either_design(cuda):
+    """On the card each call, of either design, records one observation of
+    ``refine.queries_per_partition``, the plan's own pairs over partitions,
+    once its counts have landed."""
+    store, q, (sp, lo, hi) = big_refine_inputs(31)
+    args = [torch.as_tensor(a).to(cuda) for a in (*store, q, sp, lo, hi)]
+    pairs, parts = RT.plan_sharing(args[5].cpu())
+    h = REGISTRY.histogram(RT.SHARING)
+    RT.flush_sharing()
+    n0, s0 = h.count, h.sum
+    RT._query_major(*args, 500)
+    RT._partition_major(*args, 500)
+    refine_topk(*args, 500)
+    RT.flush_sharing()
+    assert h.count == n0 + 3
+    assert h.sum - s0 == pytest.approx(3 * pairs / parts)

@@ -15,7 +15,9 @@ Inputs are the smoke's (``chip_smoke.py``): a 2^22-series random walk
 (``--seed``), its CLIMBER index at ``ClimberConfig()``, 256 queries drawn
 from it.  ``refine_topk`` runs on three partition-sorted plans: adaptive on
 queries 0-63 (the smoke's timed batch), adaptive on queries 64-127 (the
-smoke's traced tick) and ``od_smallest`` on queries 0-63; each plan's
+smoke's traced tick) and ``od_smallest`` on queries 0-63; and on seeded
+stand-ins of the kNN-LM plan's shape (n = 2,048, K = 16) and the dry-run
+slot's (50 queries x 16 whole partitions of 3,000 x 256); each plan's
 ``kept_pairs`` / ``unique_kept_records`` and byte bound come with it.
 ``pairwise_l2`` runs on 64 queries x the first 2^20 series (one Dss chunk).
 ``paa`` (w = 16) runs on the 2^22 series (the paper's shape), on 2^18
@@ -34,9 +36,18 @@ not checked: it is timed only.  Times are CUDA-event means over 20 calls,
 and the profiler's device time per kernel name, in three interleaved
 rounds.
 
+Every refine build is also forced to the partition-major design on every
+plan, with one query an item and with the most, and held bit for bit
+against the package kernel forced alike: with ``pm_checked`` (the kernel
+with its memory indices checked, trapping on a bad one) this checks the
+committed kernel's bounds at every shape.  ``--variants a,b`` builds only
+the named edits; without it every edit but ``FAULTS`` (variants that fault
+by design) is built.
+
 Usage (needs a CUDA card and nvcc):
 ``python3 tools/kernel_variants.py [--kernel refine_topk|pairwise_l2|paa|all]
-[--csrc DIR] [--parent-csrc DIR] [--out chiprun_out/kernel_variants.json]``
+[--csrc DIR] [--parent-csrc DIR] [--variants a,b] [--rounds 3]
+[--out chiprun_out/kernel_variants.json]``
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ import json
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -127,6 +139,10 @@ paa_kernel(const typename Chunk<V>::T* __restrict__ x, float* __restrict__ out,
 XM_SWIZZLED = ("  const int xm = V == 16 && (cps & (cps - 1)) == 0 ? "
                "(cps >= 8 ? 7 : cps - 1) : 0;")
 
+# units of 8 rows x 4 queries in place of 4 x 8 (a variant's edits)
+UNIT_8X4 = [("constexpr int kGw = 8;", "constexpr int kGw = 4;"),
+            ("constexpr int kRw = 4;", "constexpr int kRw = 8;")]
+
 # name -> (source file, [(anchor, replacement), ...]).  Anchors of the PR 12
 # design and of the redesign may both be listed: what is absent is skipped.
 EDITS = {
@@ -166,6 +182,104 @@ EDITS = {
         "keep_all": ("refine_topk.cu", [
             ("      bool keep = gid[u] >= 0;\n      if (keep) {",
              "      bool keep = gid[u] >= 0;\n      if (false) {")]),
+        # the partition-major design's phases: tags and lists only (no row
+        # is read), and rows streamed but never scored
+        "pm_tags_only": ("refine_topk.cu", [
+            ("      const int nt = (nev + tile - 1) / tile;",
+             "      const int nt = 0 * nev;")]),
+        "pm_no_score": ("refine_topk.cu", [
+            ("          if (!__reduce_or_sync(0xffffffffu, um)) continue;",
+             "          if (um | 1u) continue;")]),
+        "pm_no_sort": ("refine_topk.cu", [
+            ("const u64 kth = select_warp(a, cnt, k, hist, lane);\n"
+             "              keep_warp(a, cnt, kth, lane);",
+             "const u64 kth = kEmpty;"),
+            ("                s_cnt[g] = k;", "                s_cnt[g] = 0;"),
+            ("      int m = s_cnt[g];", "      int m = 0 * s_cnt[g];")]),
+        # clock64 per phase of the scoring block, summed over blocks into
+        # g_prof (read by climber_refine_profile): item set-up, tags, ring
+        # waits, pool cuts, scoring, the item's lists
+        "pm_profile": ("refine_topk.cu", [
+            ('#include "climber_kernels.cuh"\n',
+             '#include "climber_kernels.cuh"\n__device__ unsigned long long g_prof[8];\n'
+             '#define MARK(i) if (tid == 0) { const unsigned long long now = clock64(); '
+             'p_acc[i] += now - p_t; p_t = now; }\n'),
+            ("  const unsigned lt_mask = (1u << lane) - 1u;\n  if (tid == 0) s_stage = 0;\n",
+             "  const unsigned lt_mask = (1u << lane) - 1u;\n  if (tid == 0) s_stage = 0;\n"
+             "  unsigned long long p_t = clock64(), p_acc[6] = {0, 0, 0, 0, 0, 0};\n"),
+            ("    const long long pbase = static_cast<long long>(s_part) * cap;\n",
+             "    MARK(0)\n    const long long pbase = static_cast<long long>(s_part) * cap;\n"),
+            ("      const int nt = (nev + tile - 1) / tile;\n",
+             "      MARK(1)\n      const int nt = (nev + tile - 1) / tile;\n"),
+            ("        cp_async_wait(stages - 1);\n        __syncthreads();\n",
+             "        cp_async_wait(stages - 1);\n        __syncthreads();\n        MARK(2)\n"),
+            ("        const int st = t % stages;\n        const int e0 = t * tile;\n"
+             "        const int nr = nev - e0 < tile ? nev - e0 : tile;\n        const float* rows",
+             "        MARK(3)\n        const int st = t % stages;\n        const int e0 = t * tile;\n"
+             "        const int nr = nev - e0 < tile ? nev - e0 : tile;\n        const float* rows"),
+            ("        if (tid < nq && fresh < s_thresh[tid]) s_thresh[tid] = fresh;\n",
+             "        MARK(4)\n        if (tid < nq && fresh < s_thresh[tid]) s_thresh[tid] = fresh;\n"),
+            ("      if (lane == 0) atomicExch(lock, prev + 1);\n    }\n    __syncthreads();\n  }\n}\n",
+             "      if (lane == 0) atomicExch(lock, prev + 1);\n    }\n    __syncthreads();\n    MARK(5)\n  }\n"
+             "  if (tid == 0) for (int i = 0; i < 6; ++i) atomicAdd(&g_prof[i], p_acc[i]);\n}\n"),
+            ("CLIMBER_API int climber_refine_group(int n, int k) {",
+             "CLIMBER_API int climber_refine_profile(unsigned long long* out) {\n"
+             "  unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+             "  cudaMemcpyFromSymbol(out, g_prof, sizeof(zero));\n"
+             "  return static_cast<int>(cudaMemcpyToSymbol(g_prof, zero, sizeof(zero)));\n}\n\n"
+             "CLIMBER_API int climber_refine_group(int n, int k) {")]),
+        # its ring shape and pool room, each against the build's
+        "pm_ring_32x3": ("refine_topk.cu", [
+            ("{{32, 2}, {16, 3}, {32, 3}, {16, 2}, {8, 2}, {4, 2}}",
+             "{{32, 3}, {32, 2}, {16, 3}, {16, 2}, {8, 2}, {4, 2}}"),
+            ("  for (int want = 16; want >= 1; want -= 15) {",
+             "  for (int want = 12; want >= 1; want -= 11) {")]),
+        "pm_room_k": ("refine_topk.cu", [
+            ("  int room = k / 2 > kNew ? k / 2 : kNew;", "  int room = k > kNew ? k : kNew;")]),
+        # units of 8 rows x 4 queries, the tile invariant's check taken out:
+        # at n = 2,048 the ring's tiles are 4 rows, so a unit of the last
+        # tile reads past the block's shared memory (a fault; built only
+        # where --variants names it); and the same units with tiles of at
+        # least 8 rows
+        "pm_unit_8x4": ("refine_topk.cu", UNIT_8X4 + [
+            ('static_assert(tiles_hold_units(), "every ring tile holds whole units of kRw rows");\n',
+             "")]),
+        "pm_unit_8x4_tile8": ("refine_topk.cu", UNIT_8X4 + [
+            ("{{32, 2}, {16, 3}, {32, 3}, {16, 2}, {8, 2}, {4, 2}}",
+             "{{32, 2}, {16, 3}, {32, 3}, {16, 2}, {8, 2}}")]),
+        # the committed kernel with its shared- and scratch-memory indices
+        # checked: a block whose layout passes its dynamic shared memory, a
+        # unit past the ring, a pool, the list of kept slots, the merge
+        # stage or the merge block's keys past their room, or a segment
+        # past the plan traps (CUDA error 719)
+        "pm_checked": ("refine_topk.cu", [
+            ("    int* ev_d = reinterpret_cast<int*>(ev_m + kEv);\n",
+             "    int* ev_d = reinterpret_cast<int*>(ev_m + kEv);\n"
+             "    {\n      unsigned dyn;\n"
+             '      asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));\n'
+             "      if (reinterpret_cast<unsigned char*>(ev_d + kEv) - smem > dyn) __trap();\n"
+             "      if (nq < 1 || nq > kMaxGroup) __trap();\n    }\n"),
+            ("          const float* xr = rows + r0 * n_pad;\n",
+             "          if (st * tile + r0 + kRw > stages * tile) __trap();\n"
+             "          const float* xr = rows + r0 * n_pad;\n"),
+            ("              const int pos = atomicAdd(&s_cnt[g], 1);\n",
+             "              const int pos = atomicAdd(&s_cnt[g], 1);\n"
+             "              if (pos >= pk) __trap();\n"),
+            ("          if (m) {\n            ev_c[pos] = c0 + u * kThreads + tid;\n",
+             "          if (m) {\n            if (pos >= kEv) __trap();\n"
+             "            ev_c[pos] = c0 + u * kThreads + tid;\n"),
+            ("        __syncwarp();\n        if (total > k) {\n",
+             "        __syncwarp();\n        if (total > 2 * k) __trap();\n"
+             "        if (total > k) {\n"),
+            ("    if (x != kEmpty) a[pos] = x;\n",
+             "    if (x != kEmpty && pos >= (keys_at > p2 ? keys_at : p2)) __trap();\n"
+             "    if (x != kEmpty) a[pos] = x;\n"),
+            ("      if (keep) b[pos] = a[i];\n",
+             "      if (keep && pos >= static_cast<unsigned>(p2)) __trap();\n"
+             "      if (keep) b[pos] = a[i];\n"),
+            ("      seg[pos] = make_int2(q * mp + s,",
+             "      if (pos >= static_cast<unsigned>(qn) * mp) __trap();\n"
+             "      seg[pos] = make_int2(q * mp + s,")]),
     },
     "pairwise_l2": {
         # the first redesign's ring: 32-deep slices, three of them
@@ -275,7 +389,9 @@ EDITS = {
     },
 }
 PROBES = {"packed", "padded", "copy_only", "no_store", "tags_only", "rows_no_insert", "no_final_sort", "merge_only", "setup_only",
-          "keep_all", "no_norm", "few_stores", "no_barrier", "no_loads"}
+          "keep_all", "pm_tags_only", "pm_no_score", "pm_no_sort", "no_norm", "few_stores", "no_barrier", "no_loads"}
+# variants that fault by design: built only where --variants names them
+FAULTS = {"pm_unit_8x4"}
 CFG_SEED_QUERIES = 256
 
 
@@ -285,10 +401,13 @@ def smi() -> str:
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def variant_sources(kernel: str, csrc: Path):
-    """name -> {file: text} of the variants whose anchors all exist."""
+def variant_sources(kernel: str, csrc: Path, only=None):
+    """name -> {file: text} of the variants whose anchors all exist (of
+    ``only``'s names where given)."""
     out, skipped = {}, []
     for name, (fname, edits) in EDITS[kernel].items():
+        if only is not None and name not in only:
+            continue
         text = (csrc / fname).read_text()
         if not all(text.count(a) == 1 for a, _ in edits):
             skipped.append(name)
@@ -322,15 +441,75 @@ def build_all(builds: dict, root: Path, only=None) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log[-3000:]}")
         lib = ctypes.CDLL(str(root / name / "lib.so"))
-        # the PR 12 design takes a fixed number of blocks per query, the
-        # redesign the most a query may get
-        lib.balanced = "refine_plan_kernel" in (root / name / "refine_topk.cu").read_text()
+        text = (root / name / "refine_topk.cu").read_text()
+        # a build of the query-major design alone: its first version takes a
+        # fixed number of blocks per query, its redesign the most a query
+        # may get
+        lib.query_major = "climber_refine_group" not in text
+        lib.balanced = "refine_plan_kernel" in text
         for fn_name, (restype, argtypes) in _lib._SIGNATURES.items():
             if hasattr(lib, fn_name):
                 fn = getattr(lib, fn_name)
                 fn.restype, fn.argtypes = restype, argtypes
+        if lib.query_major:
+            fn = lib.climber_refine_topk
+            fn.restype, fn.argtypes = QUERY_MAJOR_REFINE
         built[name] = (lib, log)
     return built
+
+
+# climber_refine_topk of the query-major designs (an older tree's build)
+QUERY_MAJOR_REFINE = (ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p])
+
+
+def call_refine(lib, store, qs, sp, lo, hi, k: int, design=None, group=None):
+    """``(d2, gid)`` of a build of ``refine_topk.cu`` on a partition-sorted
+    plan, through that build's own C interface: by the package's rule for
+    which design a plan takes, or ``design`` ("query" / "partition"; an
+    older tree has the query-major design only), with at most ``group``
+    queries an item in the partition-major one (None: the most)."""
+    dev = qs.device
+    qn, n = qs.shape
+    mp, (p, cap) = sp.shape[1], store.norms.shape
+    d2 = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    gid = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    ptrs = (store.data.data_ptr(), store.norms.data_ptr(), store.rec_dfs.data_ptr(),
+            store.rec_gid.data_ptr(), qs.data_ptr(), sp.data_ptr(), lo.data_ptr(),
+            hi.data_ptr())
+    stream = _lib.stream(dev)
+    from repro_torch.kernels.refine_topk import PARTITION_MAJOR_MIN, plan_lists
+    if design is None:
+        design = "query" if qn * mp < PARTITION_MAJOR_MIN * p else "partition"
+    if lib.query_major or design == "query":
+        merge_smem = (lib.climber_refine_merge_smem if lib.query_major
+                      else lib.climber_refine_partial_merge_smem)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        s = 64 if lib.balanced else max(1, min(64, -(-4 * sms // qn)))
+        while s > 1 and merge_smem(s, k) > _lib.SMEM_LIMIT:
+            s -= 1
+        if lib.query_major:
+            partial = torch.empty(qn * (s * k + 2), dtype=torch.int64, device=dev)
+            _lib.check(lib.climber_refine_topk(*ptrs, partial.data_ptr(), d2.data_ptr(),
+                                               gid.data_ptr(), qn, mp, cap, n, k, s, stream),
+                       "refine build")
+            return d2, gid
+        partial = torch.empty((lib.climber_refine_partial_scratch_bytes(qn, p, k, s) + 7) // 8,
+                              dtype=torch.int64, device=dev)
+        stats = torch.empty(2, dtype=torch.int64, device=dev)
+        _lib.check(lib.climber_refine_topk_query_major(
+            *ptrs, partial.data_ptr(), stats.data_ptr(), d2.data_ptr(), gid.data_ptr(), qn,
+            mp, p, cap, n, k, s, stream), "refine build")
+        return d2, gid
+    group = min(group or 1 << 30, lib.climber_refine_group(n, k))
+    lists = plan_lists(qn, mp, p, n, k, group)
+    scratch = torch.empty((lib.climber_refine_scratch_bytes(qn, mp, p, k, lists, group) + 7)
+                          // 8, dtype=torch.int64, device=dev)
+    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    _lib.check(lib.climber_refine_topk(*ptrs, scratch.data_ptr(), stats.data_ptr(),
+                                       d2.data_ptr(), gid.data_ptr(), qn, mp, p, cap, n,
+                                       k, lists, group, stream), "refine build")
+    return d2, gid
 
 
 def ptxas_of(log: str, entry: str) -> dict:
@@ -385,6 +564,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--num", type=int, default=1 << 22)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated edits to build (default: all but FAULTS)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "kernel_variants.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -396,8 +577,7 @@ def main(argv=None) -> int:
     from repro_torch.data import make_dataset, make_queries
     from repro_torch.kernels.l2 import pairwise_l2_plain
     from repro_torch.kernels.paa_kernel import paa_sequential
-    from repro_torch.kernels.refine_topk import (masked_distances, pick_splits,
-                                                 refine_work, topk_flat)
+    from repro_torch.kernels.refine_topk import masked_distances, refine_work, topk_flat
     from repro_torch.utils.config import ClimberConfig
 
     kernels = (("refine_topk", "pairwise_l2", "paa") if args.kernel == "all"
@@ -407,8 +587,10 @@ def main(argv=None) -> int:
     if args.parent_csrc:
         builds["parent"] = (Path(args.parent_csrc).resolve(), {})
     skipped = {}
+    only = set(args.variants.split(",")) - {""} if args.variants is not None else None
     for kern in kernels:
-        srcs, skipped[kern] = variant_sources(kern, csrc)
+        srcs, skipped[kern] = variant_sources(
+            kern, csrc, only if only is not None else set(EDITS[kern]) - FAULTS)
         builds.update({f"{kern}:{v}": (csrc, o) for v, o in srcs.items()})
     built = build_all(builds, ROOT / "build" / "kernel_variants",
                       only={"paa.cu"} if kernels == ("paa",) else None)
@@ -442,8 +624,21 @@ def main(argv=None) -> int:
         index = build_index(data, cfg, device=dev, generator=gen)
         store = index.store
         queries = make_queries(data, CFG_SEED_QUERIES, generator=gen)
-        k, cap = cfg.k, store.capacity
         plans = {}
+
+        def add_plan(label, st, qs, sp, lo, hi, k):
+            """A partition-sorted plan with its counts and byte bound."""
+            nq, nn = qs.shape
+            live_w = max(1, int((sp >= 0).sum(1).max()))
+            work = refine_work(st.rec_dfs, st.rec_gid, sp[:, -live_w:],
+                               lo[:, -live_w:], hi[:, -live_w:])
+            nbytes = (work["unique_kept_records"] * (4 * nn + 4) + work["live_slots"] * 8
+                      + nq * nn * 4 + 3 * nq * sp.shape[1] * 4 + nq * k * 8)
+            flops = work["kept_pairs"] * (2 * nn + 3)
+            bound = max(nbytes / 3.35e12, flops / 67e12) * 1e3
+            plans[label] = (qs, sp, lo, hi, st, k,
+                            dict(work, mp=sp.shape[1], live_width=live_w, bound_ms=bound))
+
         for label, qs, variant in (("adaptive_q0-63", queries[:64], "adaptive"),
                                    ("adaptive_q64-127", queries[64:128], "adaptive"),
                                    ("od_smallest_q0-63", queries[:64], "od_smallest")):
@@ -453,52 +648,55 @@ def main(argv=None) -> int:
             order = torch.argsort(qp.sel_part, dim=-1, stable=True)
             sp, lo, hi = (torch.gather(t, 1, order).to(torch.int32).contiguous()
                           for t in (qp.sel_part, qp.sel_lo, qp.sel_hi))
-            live_w = int((sp >= 0).sum(1).max())
-            work = refine_work(store.rec_dfs, store.rec_gid, sp[:, -live_w:],
-                               lo[:, -live_w:], hi[:, -live_w:])
-            nbytes = (work["unique_kept_records"] * (4 * n + 4) + work["live_slots"] * 8
-                      + 64 * n * 4 + 3 * 64 * sp.shape[1] * 4 + 64 * k * 8)
-            flops = work["kept_pairs"] * (2 * n + 3)
-            bound = max(nbytes / 3.35e12, flops / 67e12) * 1e3
-            plans[label] = (qs, sp, lo, hi, live_w,
-                            dict(work, mp=sp.shape[1], live_width=live_w, bound_ms=bound,
-                                 splits=pick_splits(k)))
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            add_plan(label, store, qs, sp, lo, hi, cfg.k)
+        # stand-ins of two more shapes (seeded normal rows, not their data):
+        # the kNN-LM plan (Q = 64, MP = 864 with 40 live entries, cap 1,749,
+        # n = 2,048, K = 16) and the dry-run slot (50 queries x 16 whole
+        # partitions of 166 x 3,000 x 256, K = 500)
+        for label, p_, cap_, n_, q_, mp_, live_, k_ in (
+                ("lm_shape", 240, 1749, 2048, 64, 864, 40, 16),
+                ("dryrun_slot", 166, 3000, 256, 50, 16, 16, cfg.k)):
+            g_s = torch.Generator(device=dev).manual_seed(args.seed + 300 + n_)
+            st = types.SimpleNamespace(
+                data=torch.randn((p_, cap_, n_), generator=g_s, device=dev),
+                rec_dfs=torch.randint(0, 4, (p_, cap_), generator=g_s, device=dev,
+                                      dtype=torch.int32),
+                rec_gid=torch.arange(p_ * cap_, device=dev, dtype=torch.int32).view(p_, cap_))
+            st.norms = (st.data.double() ** 2).sum(-1).float()
+            qs = torch.randn((q_, n_), generator=g_s, device=dev)
+            parts = torch.stack([torch.randperm(p_, generator=g_s, device=dev)[:live_]
+                                 for _ in range(q_)]).sort(dim=1).values
+            sp = torch.full((q_, mp_), -1, dtype=torch.int32, device=dev)
+            sp[:, mp_ - live_:] = parts.to(torch.int32)
+            whole = label == "dryrun_slot"
+            lo = torch.where(sp >= 0, 0 if whole else torch.randint(
+                0, 2, sp.shape, generator=g_s, device=dev), 0).to(torch.int32)
+            hi = torch.where(sp >= 0, 4 if whole else lo + torch.randint(
+                1, 3, sp.shape, generator=g_s, device=dev), 0).to(torch.int32)
+            add_plan(label, st, qs.contiguous(), sp, lo, hi, k_)
 
-        def splits_of(lib, qn):
-            s = 64 if lib.balanced else max(1, min(64, -(-4 * sms // qn)))
-            while s > 1 and lib.climber_refine_merge_smem(s, k) > _lib.SMEM_LIMIT:
-                s -= 1
-            return s
-
-        def run_refine(lib, qs, sp, lo, hi, *_):
-            s = splits_of(lib, qs.shape[0])
-            partial = torch.empty(qs.shape[0] * (s * k + 2), dtype=torch.int64, device=dev)
-            d2 = torch.empty((qs.shape[0], k), dtype=torch.float32, device=dev)
-            gid = torch.empty((qs.shape[0], k), dtype=torch.int32, device=dev)
-            _lib.check(lib.climber_refine_topk(
-                store.data.data_ptr(), store.norms.data_ptr(), store.rec_dfs.data_ptr(),
-                store.rec_gid.data_ptr(), qs.data_ptr(), sp.data_ptr(), lo.data_ptr(),
-                hi.data_ptr(), partial.data_ptr(), d2.data_ptr(), gid.data_ptr(),
-                qs.shape[0], sp.shape[1], cap, n, k, s, stream), "refine variant")
-            return d2, gid
+        def run_refine(lib, qs, sp, lo, hi, st, k):
+            return call_refine(lib, st, qs, sp, lo, hi, k)
 
         names = [b for b in built if b in ("kernel", "parent") or b.startswith("refine_topk:")]
         checks = {}
-        for label, (qs, sp, lo, hi, live_w, _) in plans.items():
-            qc = max(1, int(2e9 // (live_w * cap * n * 4)))
+        for label, (qs, sp, lo, hi, st, k, info) in plans.items():
+            live_w, cap, nn = info["live_width"], st.norms.shape[1], qs.shape[1]
+            qc = max(1, int(2e9 // (live_w * cap * nn * 4)))
             outs = [topk_flat(*masked_distances(
-                store.data, store.norms, store.rec_dfs, store.rec_gid, qs[a:a + qc],
+                st.data, st.norms, st.rec_dfs, st.rec_gid, qs[a:a + qc],
                 sp[a:a + qc, -live_w:], lo[a:a + qc, -live_w:], hi[a:a + qc, -live_w:]), k)
                 for a in range(0, qs.shape[0], qc)]
             d2_p, g_p = torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
-            tol = 1e-5 * ((qs * qs).sum(-1, keepdim=True) + float(store.norms.max()))
-            ref = run_refine(built["kernel"][0], qs, sp, lo, hi)
+            tol = 1e-5 * ((qs * qs).sum(-1, keepdim=True) + float(st.norms.max()))
+            ref = run_refine(built["kernel"][0], qs, sp, lo, hi, st, k)
             checks[label] = {}
             for b in names:
                 if b.split(":")[-1] in PROBES:
                     continue
-                d2, g = run_refine(built[b][0], qs, sp, lo, hi)
+                print(f"refine check: {label} {b}", file=sys.stderr, flush=True)
+                d2, g = run_refine(built[b][0], qs, sp, lo, hi, st, k)
+                torch.cuda.synchronize()
                 err = (d2 - d2_p).abs()
                 far = 0
                 for i in (g != g_p).any(1).nonzero()[:, 0].tolist():
@@ -508,11 +706,30 @@ def main(argv=None) -> int:
                                     "within_rule": bool((err <= tol).all()) and far == 0,
                                     "equal_to_kernel": bool(torch.equal(d2, ref[0])
                                                             and torch.equal(g, ref[1]))}
-        times = rounds(list(plans), names, lambda c: plans[c][:5], run_refine,
-                       ("refine_partial", "refine_merge", "refine"))
-        report["refine_topk"] = {"plans": {c: plans[c][5] for c in plans},
+        # every build forced to the partition-major design on every plan,
+        # with one query an item and with the most, against the package
+        # kernel's build forced alike, bit for bit
+        forced = {}
+        for label, (qs, sp, lo, hi, st, k, info) in plans.items():
+            forced[label] = {}
+            for grp in (1, None):
+                ref = call_refine(built["kernel"][0], st, qs, sp, lo, hi, k, "partition", grp)
+                for b in names:
+                    if b == "parent" or b.split(":")[-1] in PROBES:
+                        continue
+                    print(f"partition-major check: {label} group {grp} {b}", file=sys.stderr,
+                          flush=True)
+                    d2, g = call_refine(built[b][0], st, qs, sp, lo, hi, k, "partition", grp)
+                    torch.cuda.synchronize()
+                    forced[label][f"{b} group={grp}"] = bool(
+                        torch.equal(d2, ref[0]) and torch.equal(g, ref[1]))
+        report["refine_topk_forced_partition_major"] = forced
+        print("partition-major forced, equal to the kernel: " + json.dumps(forced), flush=True)
+        times = rounds(list(plans), names, lambda c: plans[c][:6], run_refine,
+                       ("refine_partial", "refine_part_", "refine_merge", "refine"))
+        report["refine_topk"] = {"plans": {c: plans[c][6] for c in plans},
                                  "checks": checks, "times": times}
-        del index, store
+        del index, store, plans
 
     if "pairwise_l2" in kernels:
         g2 = torch.Generator(device=dev).manual_seed(args.seed + 100)
