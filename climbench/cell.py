@@ -10,7 +10,10 @@ loop with one analytics client: it reads its next query set of
 ``set_size`` distinct members of the collection (in the seed's order; no
 query repeats in a run), hands it to ``ClimberEngine.run`` and waits for
 the answers on the host, until ``seconds`` have passed; the last call ends
-the window.  With ``trace`` the window runs under the profiler.
+the window.  With ``trace`` the window runs under the profiler.  Just
+before the window and just after it, outside the timed loop, the program's
+registry is read (``registry.delta``), with the refine kernel's sharing
+counts still in flight landed first.
 
 After the window the program's state is freed and the plain reference
 (``reference/``) rebuilds the index from the same collection and draws and
@@ -27,7 +30,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from climbench import check, spec, trace, work
+from climbench import check, registry, spec, trace, work
 from climbench import data as cdata
 from climbench.reference import index as ref_index
 from climbench.reference import plan as ref_plan
@@ -134,11 +137,16 @@ def sample(kept_rows: int, size: int, seed: int) -> np.ndarray:
 def window(state: dict, mix: dict, seed: int, seconds: float, dev,
            traced: bool) -> dict:
     """The closed loop; returns what the readers and the check need."""
+    from repro_torch.kernels.refine_topk import flush_sharing
+    from repro_torch.obs import REGISTRY
     engine, data, order = state["engine"], state["data"], state["order"]
     b = mix["set_size"]
     n_sets_max = (data.shape[0] - mix.get("warmup_sets", 2) * b) // b
     positions = check_positions(seed, n_sets_max, b)
     st0 = engine.stats.snapshot()
+    # the warm-up's sharing counts land before the window, the window's after
+    flush_sharing()
+    reg0 = REGISTRY.snapshot()
     latencies, kept = [], []
 
     def loop():
@@ -168,10 +176,12 @@ def window(state: dict, mix: dict, seed: int, seconds: float, dev,
     else:
         n_sets, window_s = loop()
     st1 = engine.stats.snapshot()
+    flush_sharing()
+    reg = registry.delta(reg0, REGISTRY.snapshot())
     delta = {key: st1[key] - st0[key] for key in
              ("ticks", "queries", "featurize_s", "plan_s", "refine_s")}
     return {"n_sets": n_sets, "window_s": window_s, "latencies_s": latencies,
-            "kept": kept, "stats": delta, "trace": summary,
+            "kept": kept, "stats": delta, "trace": summary, "registry": reg,
             "peak_bytes": torch.cuda.max_memory_allocated(dev)
             if dev.type == "cuda" else 0}
 
@@ -233,7 +243,7 @@ def record(state: dict, win: dict, ref: dict) -> dict:
             "latencies_s": win["latencies_s"], "stats": win["stats"],
             "build_seconds": state["build_seconds"], "setup_s": state["setup_s"],
             "peak_bytes": win["peak_bytes"], "trace": win["trace"],
-            "refine_work": ref["refine_work"]}
+            "registry": win["registry"], "refine_work": ref["refine_work"]}
 
 
 def end_to_end(rec: dict, set_size: int) -> Dict[str, float]:

@@ -8,3 +8,7 @@ def read(record):
         return None
     counts = tr["stage_kernels"]["query.plan"]
     return sum(counts) / len(counts)
+
+
+CASE = {"record": {"trace": {"stage_kernels": {"query.plan": [150] * 499 + [151]}}},
+        "value": (150 * 499 + 151) / 500, "needs_trace": True}

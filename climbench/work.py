@@ -4,10 +4,17 @@
 ``refine_topk_work`` are frozen copies of the program's
 ``repro_torch/kernels/refine_topk.py`` as it stood when the benchmark was
 written, so a later change to the program cannot change the count: the
-(query, record) pairs a refine must score, the distinct records whose rows
-and norms it must read once a call, and the tags of every live plan slot.
-``tick_work`` applies them to a whole tick in blocks of queries, each block
-cut to its widest live plan row (pads sort first and count for nothing).
+(query, record) pairs a refine must score and the distinct records whose
+rows and norms it must read once a call.  The tags are charged apart from
+the program's count: 8 bytes (DFS position and id) for each live record
+(id >= 0) of each distinct partition the call plans, once a call.  No
+design that reads the tags can read fewer, and the charge depends neither
+on the store's padded width ``cap`` nor on how many queries plan a
+partition.  Every count is taken on the reference's store, never the
+program's.  ``tick_work`` applies them to a whole tick in blocks of
+queries, each block cut to its widest live plan row (pads sort first and
+count for nothing); its distinct records and tags are counted over the
+whole tick.
 """
 from __future__ import annotations
 
@@ -48,6 +55,13 @@ def kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi) -> torch.Tensor:
     return dedupe_segments(sel_part, incl)
 
 
+def tag_records(rec_gid, sel_part) -> int:
+    """Live records of the distinct partitions that ``sel_part`` plans:
+    the tags a call must read, each once."""
+    planned = torch.unique(sel_part[sel_part >= 0]).long()
+    return int((rec_gid[planned] >= 0).sum())
+
+
 def refine_work(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi) -> dict:
     kept = kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi)
     cap = kept.shape[-1]
@@ -55,26 +69,27 @@ def refine_work(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi) -> dict:
             + torch.arange(cap, device=kept.device))
     return {"kept_pairs": int(kept.sum()),
             "unique_kept_records": int(torch.unique(slot[kept]).numel()),
-            "live_slots": int((sel_part >= 0).sum()) * cap}
+            "tag_records": tag_records(rec_gid, sel_part)}
 
 
-def refine_topk_work(kept_pairs: int, unique_kept_records: int, live_slots: int,
+def refine_topk_work(kept_pairs: int, unique_kept_records: int, tag_records: int,
                      nq: int, mp: int, n: int, k: int) -> Work:
     return Work(flops=kept_pairs * (2 * n + 3),
-                nbytes=unique_kept_records * (4 * n + 4) + live_slots * 8
+                nbytes=unique_kept_records * (4 * n + 4) + tag_records * 8
                 + nq * n * 4 + 3 * nq * mp * 4 + nq * k * 8)
 
 
 def tick_work(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi, n: int, k: int,
               block: int = 16) -> Work:
     """One tick's refine work: its plan sorted by partition (pads first),
-    counted in blocks of ``block`` queries; distinct records over the whole
-    tick; the plan read at the tick's widest live row."""
+    counted in blocks of ``block`` queries; distinct records and the tags of
+    the planned partitions over the whole tick; the plan read at the tick's
+    widest live row."""
     order = torch.argsort(sel_part, dim=-1, stable=True)
     sp, lo, hi = (torch.gather(t, 1, order) for t in (sel_part, sel_lo, sel_hi))
     live = (sp >= 0).sum(dim=-1)
     cap = rec_gid.shape[1]
-    pairs, slots, uniq = 0, 0, []
+    pairs, uniq = 0, []
     for b0 in range(0, sp.shape[0], block):
         width = int(live[b0:b0 + block].max())
         if width == 0:
@@ -83,12 +98,12 @@ def tick_work(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi, n: int, k: int,
         bsp, blo, bhi = sp[b0:b0 + block, cols], lo[b0:b0 + block, cols], hi[b0:b0 + block, cols]
         kept = kept_slots(rec_dfs, rec_gid, bsp, blo, bhi)
         pairs += int(kept.sum())
-        slots += int((bsp >= 0).sum()) * cap
         slot = (torch.clamp(bsp, min=0).long()[:, :, None] * cap
                 + torch.arange(cap, device=kept.device))
         uniq.append(torch.unique(slot[kept]))
     unique = int(torch.unique(torch.cat(uniq)).numel()) if uniq else 0
-    return refine_topk_work(pairs, unique, slots, sp.shape[0], int(live.max()), n, k)
+    return refine_topk_work(pairs, unique, tag_records(rec_gid, sp), sp.shape[0],
+                            int(live.max()), n, k)
 
 
 def bound_s(work: Work, kind: str) -> float:
