@@ -14,7 +14,13 @@ path and read just after it:
    take ``refine_topk``'s query-major design and the tick its
    partition-major one, and each design's launch count must be non-zero.
    After the counts are read, ``refine_topk`` on that tick's plan is held
-   against its plain version.
+   against its plain version.  Then a **ragged** store at the
+   ``sift128-25m`` cell's shapes (``partition_pad=0``: 2^22 SIFT-shaped
+   rows at n=128, 36,000 of them near-copies of one descriptor, so the
+   fullest partition is over 8x the mean): with launch counts zeroed, the
+   cell's adaptive tick of 4,096 queries (one partition-major launch, one
+   ``refine.item_tail`` observation) and a tick of 64 (one query-major
+   launch), each held against the plain version on the same store.
 2. **evaluation** (Fig. 7): for the main dataset and for ``sift``, ``dna``,
    ``eeg`` and ``seismic`` at ``--other-num`` series each, the exact ground
    truth of 64 queries by Dss (``GroundTruthCache`` → ``exact_knn`` → the
@@ -612,7 +618,8 @@ INSERT_BATCHES, INSERT_ROWS, TAIL_BATCHES = 64, 1024, 4
 def plain_refine_chunked(store, qs, sp, lo, hi, k, budget=4e9):
     """``refine_topk``'s plain version over a partition-sorted plan, in
     query chunks and, where the plan names each partition once (an
-    exhaustive plan), in chunks of partition columns, each gathering at
+    exhaustive plan), in chunks of partition columns, on a store of either
+    layout (a ragged one through its offsets), each gathering at
     most ``budget`` bytes of rows; the chunks' top-k lists are merged by
     (d², column), the order of one plain pass."""
     import torch
@@ -626,11 +633,12 @@ def plain_refine_chunked(store, qs, sp, lo, hi, k, budget=4e9):
                          "across column chunks")
     qc = max(1, int(budget // (cols * per)))
     out_d, out_g = [], []
+    ragged = getattr(store, "ragged", None)      # None: a dense store
     for a in range(0, qs.shape[0], qc):
         parts = [topk_flat(*masked_distances(
             store.data, store.norms, store.rec_dfs, store.rec_gid, qs[a:a + qc],
             sp[a:a + qc, c:c + cols], lo[a:a + qc, c:c + cols],
-            hi[a:a + qc, c:c + cols]), k) for c in range(0, live_w, cols)]
+            hi[a:a + qc, c:c + cols], ragged=ragged), k) for c in range(0, live_w, cols)]
         d, g = topk_flat(torch.cat([x[0] for x in parts], 1),
                          torch.cat([x[1] for x in parts], 1), k)
         out_d.append(d)
@@ -652,7 +660,8 @@ def refine_plan_checks(path, qs, k, cases) -> dict:
         sp, lo, hi = (torch.gather(t, 1, order).to(torch.int32).contiguous()
                       for t in plan)
         (d2_k, g_k), secs = sync_wall(lambda: refine_topk(
-            store.data, store.norms, store.rec_dfs, store.rec_gid, qs, sp, lo, hi, k))
+            store.data, store.norms, store.rec_dfs, store.rec_gid, qs, sp, lo, hi, k,
+            ragged=getattr(store, "ragged", None)))
         d2_p, g_p, live_w = plain_refine_chunked(store, qs, sp, lo, hi, k)
         tol = 1e-5 * ((qs * qs).sum(-1, keepdim=True) + float(store.norms.max()))
         err, differ = assert_same_topk(f"refine_topk [{path} {label}]", d2_k, g_k,
@@ -665,6 +674,135 @@ def refine_plan_checks(path, qs, k, cases) -> dict:
             f"{qs.shape[0]} queries differ in gid order at near-ties; "
             + json.dumps(out[label], default=float))
         del d2_p, g_p
+    return out
+
+
+RAGGED_ROWS = 1 << 22     # SIFT-shaped rows of the ragged ticks
+RAGGED_HOT = 36_000       # near-copies of one descriptor, a partition the trie
+                          # cannot split: ~12x the mean, as the sift cell's
+                          # fullest partition is 10.9x its mean
+RAGGED_SMALL = 64         # queries of the query-major tick
+RAGGED_CHECKED = 128      # of the 4,096-query tick's, held against the plain version
+
+
+def ragged_path(args, dev, cfg) -> dict:
+    """``refine_topk`` on a ragged store (``partition_pad=0``) at the
+    ``sift128-25m`` cell's shapes: n = 128, the fullest partition over 8x
+    the mean, the cell's adaptive tick of 4,096 distinct members of the
+    collection (the partition-major design) and a tick of 64 (the
+    query-major one).  Launch counts are zeroed just before the two ticks
+    and read just after; then each tick's answers are held against the
+    plain version on the same ragged store: all 64 of the small tick's,
+    and of the large one's every query that plans the fullest partition
+    (up to half of ``RAGGED_CHECKED``) and others drawn from the seed."""
+    import dataclasses
+    import torch
+    from repro_torch.core.index import RaggedStore, build_index
+    from repro_torch.core.query import plan as plan_queries
+    from repro_torch.data import sift_like
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.refine_topk import (ITEM_TAIL, PARTITION_MAJOR_MIN,
+                                                 flush_sharing, refine_topk)
+    from repro_torch.obs.registry import REGISTRY
+    rcfg = dataclasses.replace(cfg, series_len=128, partition_pad=0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 128)
+    t = time.perf_counter()
+    data = torch.cat([
+        sift_like(RAGGED_ROWS - RAGGED_HOT, 128, generator=gen, device=dev),
+        sift_like(RAGGED_HOT, 128, generator=gen, device=dev, num_clusters=1,
+                  spread=0.002)])
+    index = build_index(data, rcfg, device=dev, generator=gen)
+    st = index.store
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    if not isinstance(st, RaggedStore):
+        raise SystemExit(f"partition_pad=0 built a {type(st).__name__}, not a RaggedStore")
+    count = st.count.double()
+    p, cap, k = st.num_partitions, st.capacity, rcfg.k
+    mean = float(count.mean())
+    qs_ = torch.quantile(count, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                                             device=dev)).tolist()
+    out = {"rows": RAGGED_ROWS, "n": 128, "P": p, "cap": cap, "mean": mean,
+           "cap_over_mean": cap / mean, "count_p50_p90_p99": qs_,
+           "store_gb": sum(x.numel() * x.element_size() for x in st
+                           if isinstance(x, torch.Tensor)) / 1e9,
+           "build_s": build_s}
+    say("ragged: " + json.dumps(out, default=float))
+    if cap < 8 * mean:
+        raise SystemExit(f"ragged: the fullest partition ({cap}) is under 8x the "
+                         f"mean ({mean:.0f})")
+
+    def tick_plan(qs):
+        qp = plan_queries(index, index.featurize(qs)[0], variant="adaptive")
+        order = torch.argsort(qp.sel_part, dim=-1, stable=True)
+        return [torch.gather(t_, 1, order).to(torch.int32).contiguous()
+                for t_ in (qp.sel_part, qp.sel_lo, qp.sel_hi)]
+
+    g_q = torch.Generator(device=dev).manual_seed(args.seed + TICK_QUERIES + 128)
+    pick = torch.randperm(RAGGED_ROWS, generator=g_q, device=dev)
+    ticks = {"b4096": data[pick[:TICK_QUERIES]].contiguous(),
+             f"b{RAGGED_SMALL}": data[pick[TICK_QUERIES:TICK_QUERIES + RAGGED_SMALL]]
+             .contiguous()}
+    plans = {name: tick_plan(qs) for name, qs in ticks.items()}
+    for name, (sp, _, _) in plans.items():
+        major = ticks[name].shape[0] * sp.shape[1] >= PARTITION_MAJOR_MIN * p
+        if major != (name == "b4096"):
+            raise SystemExit(f"ragged: the {name} tick's plan (MP={sp.shape[1]}, P={p}) "
+                             f"does not take the design it is for")
+
+    def call(name):
+        return refine_topk(st.data, st.norms, st.rec_dfs, st.rec_gid, ticks[name],
+                           *plans[name], k, ragged=st.ragged)
+
+    flush_sharing()
+    tail = REGISTRY.histogram(ITEM_TAIL)
+    n0, s0 = tail.count, tail.sum
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    answers = {name: call(name) for name in ticks}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    flush_sharing()
+    out["launches"] = launches
+    out["item_tail"] = (tail.sum - s0) / max(tail.count - n0, 1)
+    say(f"ragged launches: {launches}; refine.item_tail of the 4,096-query tick "
+        f"{out['item_tail']:.3f}")
+    if launches["refine_topk"] != 2 or launches["refine_topk.partition_major"] != 1 \
+            or tail.count - n0 != 1:
+        raise SystemExit(f"ragged: expected one partition-major and one query-major "
+                         f"launch and one item-tail observation, got {launches} and "
+                         f"{tail.count - n0}")
+
+    xmax = float(st.norms.max())
+    fullest = int(torch.argmax(st.count))
+    sp_t = plans["b4096"][0]
+    hot = (sp_t == fullest).any(1).nonzero()[:, 0][:RAGGED_CHECKED // 2]
+    rest = torch.randperm(TICK_QUERIES, generator=g_q, device=dev)
+    rest = rest[~torch.isin(rest, hot)][:RAGGED_CHECKED - hot.numel()]
+    rows = {"b4096": torch.sort(torch.cat([hot, rest])).values,
+            f"b{RAGGED_SMALL}": torch.arange(RAGGED_SMALL, device=dev)}
+    out["b4096_queries_planning_fullest"] = int((sp_t == fullest).any(1).sum())
+    out["max_abs_err"], out["ticks"] = 0.0, {}
+    for name, r in rows.items():
+        qs = ticks[name][r]
+        sp, lo, hi = (x[r] for x in plans[name])
+        d2_p, g_p, live_w = plain_refine_chunked(st, qs, sp, lo, hi, k)
+        tol = 1e-5 * ((qs * qs).sum(-1, keepdim=True) + xmax)
+        err, differ = assert_same_topk(f"refine_topk [ragged {name}]", answers[name][0][r],
+                                       answers[name][1][r], d2_p, g_p, tol)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["ticks"][name] = {
+            "Q": ticks[name].shape[0], "mp": plans[name][0].shape[1],
+            "entries_per_partition": ticks[name].shape[0] * plans[name][0].shape[1] / p,
+            "checked": int(r.numel()), "live_width_checked": live_w,
+            "max_abs_err": err, "gid_queries_differ": differ,
+            "ms": cuda_ms(lambda: call(name))}
+        say(f"refine_topk [ragged {name}]: max |Δd²| {err:.3g}; {differ} of "
+            f"{r.numel()} checked queries differ in gid order at near-ties; "
+            + json.dumps(out["ticks"][name], default=float))
+        del d2_p, g_p
+    del data, index, st, ticks, plans, answers
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3284,6 +3422,9 @@ def main(argv=None) -> int:
         "serve", q_tick, cfg.k, [("adaptive b4096", store, (sp_t, lo_t, hi_t))])
     del eng_t, sp_t, lo_t, hi_t, dist_t
 
+    # ---- a ragged store at the sift cell's shapes, launch counts zeroed ---
+    report["ragged"] = ragged_path(args, dev, cfg)
+
     # ---- where one serving tick's time goes (a separate, traced tick) -----
     from torch.profiler import ProfilerActivity, profile
     eng_p = ClimberEngine(index, batch_size=64, variant="adaptive", k=cfg.k)
@@ -3644,6 +3785,8 @@ def main(argv=None) -> int:
     # path's counts were read: their errors join the kernel rows
     for row in kernels:
         if row["name"] == "refine_topk":
+            row["ragged_plans"] = report["ragged"]["ticks"]
+            row["max_abs_err"] = max(row["max_abs_err"], report["ragged"]["max_abs_err"])
             for path in ("fleet", "net", "mesh", "frontier"):
                 row[f"{path}_plans"] = report[path]["refine_checks"]
                 row["max_abs_err"] = max([row["max_abs_err"]] + [
@@ -3661,7 +3804,8 @@ def main(argv=None) -> int:
             row["max_abs_err"] = max([row["max_abs_err"], lm["max_abs_err"]]
                                      + [lm.get("queries", lm)["max_abs_err"]])
     say(f"peak device memory of the smoke: {peak_gb:.1f} GB")
-    by_path = {"serve": launches, "eval": eval_launches, "fleet": fleet_launches,
+    by_path = {"serve": launches, "ragged": report["ragged"]["launches"],
+               "eval": eval_launches, "fleet": fleet_launches,
                "net": net_launches, "mesh": mesh_launches,
                "frontier": frontier_launches, "lm": lm_launches,
                "tp": tp_launches, "train": train_launches, "dryrun": dryrun_launches,

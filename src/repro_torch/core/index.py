@@ -13,14 +13,30 @@ and signatures, which come from the kernels (``kernels.ops``).  Step 4 runs
 on the index's device in chunks, through the same kernels, and the store is
 scattered there.
 
-The physical store is a dense ``[P, cap, n]`` array with validity masks;
-records carry their trie node's DFS tag, so record↔node attribution at
+The physical store takes one of two layouts, by ``cfg.partition_pad``:
+
+  * dense (``None`` or a positive pad): :class:`PartitionStore`, a
+    ``[P, cap, n]`` array, every partition padded to ``cap`` slots (the
+    fullest partition, or the pad) with ``rec_gid = -1`` past its records.
+    The fleet inserts into its pad slots, and snapshots carry it as the JAX
+    package's arrays;
+  * ragged (``0``): :class:`RaggedStore`, each partition exactly its
+    records: rows ``[R, n]`` in partition order, ``[R]`` norms, tags and
+    ids, and per partition its first row ``start`` (int64) and ``count``.
+    No pad slot is kept, so a collection whose partitions differ widely in
+    size (SIFT-shaped data: the fullest about 11x the mean) holds its rows once.
+    It serves through the same refine kernels as a dense store (which they
+    see as its flat view) and gives the same answers bit for bit; the paths
+    that write pad slots or carry the dense arrays refuse it
+    (:func:`require_dense`).
+
+Records carry their trie node's DFS tag, so record↔node attribution at
 query time is an interval test.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +48,8 @@ from repro_torch.core.signatures import set_signature
 from repro_torch.core.traversal import TrieDevice, route_records
 from repro_torch.core.trie import TrieForest, build_forest
 from repro_torch.kernels import ops
-from repro_torch.obs import TRACER
+from repro_torch.kernels.refine_topk import Ragged
+from repro_torch.obs import REGISTRY, TRACER
 from repro_torch.utils.config import ClimberConfig
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 
@@ -56,6 +73,61 @@ class PartitionStore(NamedTuple):
     def capacity(self) -> int:
         return self.data.shape[1]
 
+    @property
+    def ragged(self) -> None:
+        """A dense store has no offsets: the kernels take its flat view."""
+        return None
+
+
+class RaggedStore(NamedTuple):
+    """Physical partitions with no pad slot: partition ``p`` is rows
+    ``start[p] .. start[p] + count[p]`` of every column."""
+
+    data: torch.Tensor      # [R, n] raw series, in partition order
+    norms: torch.Tensor     # [R]    precomputed |x|^2
+    rec_dfs: torch.Tensor   # [R]    dfs_in of the record's trie node
+    rec_gid: torch.Tensor   # [R]    original dataset row id
+    start: torch.Tensor     # [P]    int64 first row of each partition
+    count: torch.Tensor     # [P]    int32 records per partition
+    cap: int                # the fullest partition's count
+
+    @property
+    def num_partitions(self) -> int:
+        return self.start.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.cap
+
+    @property
+    def ragged(self) -> Ragged:
+        """Each partition's offsets as the refine kernels take them."""
+        return Ragged(self.start, self.count, self.cap)
+
+
+Store = Union[PartitionStore, RaggedStore]
+
+
+def require_dense(store: Store, what: str) -> PartitionStore:
+    """``store``, where it is dense; a :class:`RaggedStore` raises, so that
+    no path that writes pad slots or carries ``[P, cap]`` arrays reads it."""
+    if isinstance(store, RaggedStore):
+        raise ValueError(f"{what} takes a dense [P, cap, n] PartitionStore; this "
+                         f"store has the ragged layout (partition_pad=0)")
+    return store
+
+
+def store_bytes(store: Store) -> int:
+    """Bytes of every tensor of the store (on the card, for an index there)."""
+    return sum(t.numel() * t.element_size() for t in store
+               if isinstance(t, torch.Tensor))
+
+
+def live_bytes(store: Store) -> int:
+    """Bytes the live records need: each its row, norm, tag and id."""
+    n = store.data.shape[-1]
+    return int(store.count.sum()) * (4 * n + 12)
+
 
 @dataclass
 class ClimberIndex:
@@ -66,7 +138,7 @@ class ClimberIndex:
     centroid_onehot: torch.Tensor   # [G, r], row 0 = fall-back
     forest: TrieForest              # host skeleton (numpy)
     trie: TrieDevice                # device skeleton
-    store: PartitionStore
+    store: Store
     build_seconds: Dict[str, float] = field(default_factory=dict)
 
     @property
@@ -105,22 +177,34 @@ def _route_full_dataset(data: torch.Tensor, pivots: torch.Tensor,
 
 def build_store(data: torch.Tensor, part: torch.Tensor, rec_dfs: torch.Tensor,
                 num_partitions: int, pad: Optional[int] = None,
-                chunk: int = ROUTE_CHUNK) -> PartitionStore:
-    """Scatter records into the fixed-capacity partition array, on the
-    data's device.  Slot order: stable sort by partition, so slot c of a
-    partition holds its c-th record in dataset order; norms are summed in
-    float64 and cast to float32."""
+                chunk: int = ROUTE_CHUNK) -> Store:
+    """Place the records in their partitions, on the data's device.  Record
+    order: stable sort by partition, so slot c of a partition holds its c-th
+    record in dataset order; norms are summed in float64 and cast to
+    float32.  ``pad`` 0 builds a :class:`RaggedStore`; None or a positive
+    pad a dense :class:`PartitionStore` of ``max(pad, fullest)`` slots a
+    partition.  Either is written in chunks of ``chunk`` records."""
     dev = data.device
     n_rec, series_len = data.shape
     part = part.to(dev).long()
     rec_dfs = rec_dfs.to(dev)
     counts = torch.bincount(part, minlength=num_partitions)
-    cap = int(counts.max()) if pad is None else int(max(pad, int(counts.max())))
-    cap = max(cap, 1)
-
+    fullest = int(counts.max())
     order = torch.argsort(part, stable=True)
-    part_sorted = part[order]
     starts = torch.cumsum(counts, dim=0) - counts
+    if pad == 0:
+        rows = torch.empty((n_rec, series_len), dtype=torch.float32, device=dev)
+        norms = torch.empty((n_rec,), dtype=torch.float32, device=dev)
+        for lo in range(0, n_rec, chunk):
+            x = data[order[lo:lo + chunk]].float()
+            rows[lo:lo + chunk] = x
+            norms[lo:lo + chunk] = (x.double() ** 2).sum(dim=-1).float()
+        return RaggedStore(data=rows, norms=norms,
+                           rec_dfs=rec_dfs[order].to(torch.int32),
+                           rec_gid=order.to(torch.int32), start=starts,
+                           count=counts.to(torch.int32), cap=max(fullest, 1))
+    cap = max(fullest if pad is None else max(pad, fullest), 1)
+    part_sorted = part[order]
     slot = torch.arange(n_rec, device=dev) - starts[part_sorted]
 
     store_data = torch.zeros((num_partitions, cap, series_len),
@@ -217,6 +301,8 @@ def build_index(data: torch.Tensor, cfg: ClimberConfig, *,
         store = build_store(data, part, rec_dfs, forest.num_partitions,
                             pad=cfg.partition_pad)
         synchronize(dev)
+    REGISTRY.gauge("index.store_bytes").set(store_bytes(store))
+    REGISTRY.gauge("index.store_live_bytes").set(live_bytes(store))
     secs = {step: sp.duration_ms * 1e-3 for step, sp in spans.items()}
     secs["total"] = sum(secs.values())
     return ClimberIndex(cfg=cfg, pivots=pivots, centroid_onehot=c_onehot,

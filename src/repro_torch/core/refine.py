@@ -13,6 +13,12 @@ record of those targets by exact ED and keep the k best.  Backends, behind
     card, its plain version on the CPU), masks the full distance tensor,
     stable top-k — the parity oracle.
 
+Either store layout (``core.index``: dense :class:`PartitionStore`, or
+:class:`RaggedStore`) goes through both backends, which address it
+through its ``ragged`` offsets (None for a dense store); a ragged store
+answers as its dense counterpart, bit for bit.  The sharded refine takes
+dense stores only.
+
 ``use_kernel=None`` resolves by the store's device (:func:`default_use_kernel`):
 the kernel on CUDA, the dense path on the CPU.  ``use_kernel=False`` is the
 only way a CUDA tensor reaches the dense path.
@@ -41,7 +47,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.index import PartitionStore
+from repro_torch.core.index import PartitionStore, Store
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.refine_topk import PAD_D2, masked_distances, topk_flat
 from repro_torch.launch.mesh import as_mesh
@@ -72,15 +78,16 @@ def _sort_by_partition(sel_part, sel_lo, sel_hi):
     return take(sel_part), take(sel_lo), take(sel_hi)
 
 
-def _masked_distances(store: PartitionStore, queries, sel_part, sel_lo, sel_hi):
+def _masked_distances(store: Store, queries, sel_part, sel_lo, sel_hi):
     """Dense ``[Q, MP·cap]`` masked squared ED and gids (the oracle)."""
     sel_part, sel_lo, sel_hi = _sort_by_partition(sel_part, sel_lo, sel_hi)
     return masked_distances(store.data, store.norms, store.rec_dfs,
                             store.rec_gid, queries, sel_part, sel_lo, sel_hi,
-                            dot_fn=kernel_ops.batched_query_dots)
+                            dot_fn=kernel_ops.batched_query_dots,
+                            ragged=store.ragged)
 
 
-def refine(store: PartitionStore, queries: torch.Tensor, sel_part: torch.Tensor,
+def refine(store: Store, queries: torch.Tensor, sel_part: torch.Tensor,
            sel_lo: torch.Tensor, sel_hi: torch.Tensor, k: int,
            *, use_kernel: Optional[bool] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,14 +102,14 @@ def refine(store: PartitionStore, queries: torch.Tensor, sel_part: torch.Tensor,
                                use_kernel))
 
 
-def _refine_d2(store: PartitionStore, queries, sel_part, sel_lo, sel_hi,
+def _refine_d2(store: Store, queries, sel_part, sel_lo, sel_hi,
                k: int, use_kernel: Optional[bool]):
     """``(d² [Q, k], gid [Q, k])`` by (d², flat index), on the store's
     device: the refine before its square root."""
     if resolve_use_kernel(use_kernel, store.data.device):
         return kernel_ops.fused_refine_topk_device_plan(
             store.data, store.norms, store.rec_dfs, store.rec_gid,
-            queries, sel_part, sel_lo, sel_hi, k)
+            queries, sel_part, sel_lo, sel_hi, k, ragged=store.ragged)
     return topk_flat(*_masked_distances(store, queries, sel_part, sel_lo,
                                         sel_hi), k)
 
@@ -199,7 +206,7 @@ def refine_sharded(store: PartitionStore, queries: torch.Tensor,
     return _finish(*topk_flat(d2, gid, k))
 
 
-def dispatch_refine(store: PartitionStore, queries: torch.Tensor,
+def dispatch_refine(store: Store, queries: torch.Tensor,
                     sel_part: torch.Tensor, sel_lo: torch.Tensor,
                     sel_hi: torch.Tensor, k: int, *, mesh=None,
                     use_kernel: Optional[bool] = None,

@@ -3,9 +3,16 @@
 //
 // Replaces the Pallas kernel repro/kernels/refine_topk.py::refine_topk
 // (_refine_topk_kernel, the pallas_call at repro/kernels/refine_topk.py:189).
-// For query q and plan entry s (the plan sorted by partition id, pads first)
-// the candidates are the cap slots of partition sel_part[q, s]; slot c has
-// the flat index f = s * cap + c.  A record is kept iff gid >= 0,
+// The store is flat: rows [R, n], norms, DFS tags and ids [R], and for each
+// partition p its first row start[p] (64-bit: R * n may pass 2^31) and its
+// extent[p] slots.  A ragged store holds each partition's records and no
+// more (extent = its count); a dense [P, cap, n] store passes itself as the
+// view rows = data.view(P * cap, n), start = p * cap, extent = cap.  For
+// query q and plan entry s (the plan sorted by partition id, pads first)
+// the candidates are the extent[p] slots of partition p = sel_part[q, s],
+// rows start[p] + c; slot c has the flat index f = s * cap + c, cap the
+// largest extent (so a key's index, and the answer, is the same for a
+// store and its dense view).  A record is kept iff gid >= 0,
 // sel_lo <= dfs < sel_hi, and no earlier entry of the same partition covers
 // it (the segment dedupe of core/refine.py).  Its squared distance is
 // max(|q|^2 - 2 q.x + |x|^2, 0).  The output is the k best by the key
@@ -21,18 +28,20 @@
 // Two designs, which give the same bits.  The query-major one (below, in
 // namespace qm; the second of two query-major designs) gives each query
 // blocks in proportion to its live slots (grid (splits, Q), sharing a chunk
-// counter): 2,048-slot tag passes, then the kept rows streamed 8 per warp
-// with all their loads in flight, and a merge of the query's sorted partial
-// lists by merge path.  Its first version (a fixed number of blocks per
-// query, 256-slot tiles of tag test, rows and key insert) took 0.50-0.52
-// ms on the smoke's adaptive batch (Q = 64, 8 live entries, cap 4,026: a
-// 0.138 ms bound); this one 0.26-0.27 ms there, but 17.6-17.7 ms (adaptive)
-// and 42.9-46.8 ms (spend 4) on the cells' ticks: every block read its own
-// query's kept rows, 1,028 bytes a kept pair, at 2.9 TB/s, so a record that
-// 8 or 22 queries planned crossed HBM 8 or 22 times (tools/refine_cells.py,
-// one H100).  The wrapper takes it where the plan's partitions have few
-// entries (Q * MP / P below PARTITION_MAJOR_MIN): there its fewer fixed
-// costs win.
+// counter): 2,048-slot tag passes over its live slots, the extents of its
+// entries' partitions laid end to end (so the blocks and passes follow the
+// partitions' real sizes, not cap), then the kept rows streamed 8
+// per warp with all their loads in flight, and a merge of the query's
+// sorted partial lists by merge path.  Its first version (a fixed number of
+// blocks per query, 256-slot tiles of tag test, rows and key insert) took
+// 0.50-0.52 ms on the smoke's adaptive batch (Q = 64, 8 live entries, cap
+// 4,026: a 0.138 ms bound); this one 0.26-0.27 ms there, but 17.6-17.7 ms
+// (adaptive) and 42.9-46.8 ms (spend 4) on the cells' ticks: every block
+// read its own query's kept rows, 1,028 bytes a kept pair, at 2.9 TB/s, so
+// a record that 8 or 22 queries planned crossed HBM 8 or 22 times
+// (tools/refine_cells.py, one H100).  The wrapper takes it where the plan's
+// partitions have few entries (Q * MP / P below PARTITION_MAJOR_MIN): there
+// its fewer fixed costs win.
 //
 // The partition-major design: five kernels and two memsets on one stream,
 // no host sync.
@@ -42,7 +51,14 @@
 //   * refine_scan_kernel (one block): the partitions' segment offsets, and
 //     the work items: each planned partition's segments split evenly into
 //     items of at most `group` queries (as many as the block's shared memory
-//     holds beside its ring of rows: 19 at n = 256, k = 500).
+//     holds beside its ring of rows: 19 at n = 256, k = 500).  It also
+//     counts the items' largest and total (slots x queries), for
+//     refine.item_tail: an item is a whole partition, and on SIFT-shaped
+//     data the fullest is 10.9x the mean.  Items cut into slot ranges of
+//     8,192 were measured there: the largest item fell from 0.55-0.71 of a
+//     block's even share to 0.18-0.24, and the call took 1.1-1.5% longer
+//     (more list merges), so items stay whole (tools/refine_cells.py, one
+//     H100).
 //     refine_scatter_kernel (a warp per plan row) places each segment in
 //     its partition's bucket with its ordinal in its row.
 //   * refine_part_kernel, a persistent grid taking items from a counter.  A
@@ -79,7 +95,9 @@
 // Both designs write the plan's sharing to `stats`, counted on the card:
 // its live (query, partition) segments and its distinct planned partitions,
 // the partition-major design in its count and scan kernels, the
-// query-major one in its merge kernel (a flag a partition).
+// query-major one in its merge kernel (a flag a partition).  The
+// partition-major design adds its largest item's (slots x queries), the
+// items' total and its persistent blocks.
 #include "climber_kernels.cuh"
 
 namespace {
@@ -109,6 +127,10 @@ constexpr int kCtrNext = 0;               // next item to take
 constexpr int kCtrItems = 1;              // items
 constexpr int kCtrPairs = 2;              // live (query, partition) segments
 constexpr int kCtrParts = 3;              // distinct planned partitions
+constexpr int kCtrItemMax = 4;            // the largest item's slots x queries
+constexpr int kCtrItemWork = 5;           // the items' slots x queries
+constexpr int kCtrBlocks = 6;             // the scoring grid's blocks
+constexpr int kCtrStats = 5;              // words copied to stats, from kCtrPairs
 constexpr int kCtrWords = 8;
 
 __device__ __forceinline__ u64 make_key(float d2, int flat) {
@@ -229,19 +251,26 @@ __global__ void refine_count_kernel(const int* __restrict__ sel_part,
 
 // One block: pstart = exclusive scan of pcount; items = each partition's
 // segments split evenly into ceil(count / group) runs {first, count}.
+// Also the items' largest and total (slots x queries), and `blocks`.
 __global__ void refine_scan_kernel(const unsigned* __restrict__ pcount,
+                                   const int* __restrict__ extent,
                                    unsigned* __restrict__ pstart,
                                    int2* __restrict__ items,
-                                   u64* __restrict__ ctr, int np, int group) {
+                                   u64* __restrict__ ctr, int np, int group,
+                                   unsigned blocks) {
   __shared__ unsigned s_seg[1024], s_item[1024];
   __shared__ unsigned s_carry_seg, s_carry_item, s_parts;
+  __shared__ u64 s_max, s_work;
   const int tid = threadIdx.x;
   if (tid == 0) {
     s_carry_seg = 0;
     s_carry_item = 0;
     s_parts = 0;
+    s_max = 0;
+    s_work = 0;
   }
   __syncthreads();
+  u64 my_max = 0, my_work = 0;
   for (int base = 0; base < np; base += blockDim.x) {
     const int p = base + tid;
     const unsigned c = p < np ? pcount[p] : 0u;
@@ -261,13 +290,16 @@ __global__ void refine_scan_kernel(const unsigned* __restrict__ pcount,
     const unsigned item0 = s_carry_item + s_item[tid] - it;
     if (p < np) {
       pstart[p] = seg0;
+      const u64 slots = c > 0 ? static_cast<u64>(extent[p]) : 0;
       for (unsigned i = 0; i < it; ++i) {
         const unsigned lo = seg0 + static_cast<unsigned>(
             static_cast<u64>(i) * c / it);
         const unsigned hi = seg0 + static_cast<unsigned>(
             static_cast<u64>(i + 1) * c / it);
         items[item0 + i] = make_int2(static_cast<int>(lo), static_cast<int>(hi - lo));
+        my_max = slots * (hi - lo) > my_max ? slots * (hi - lo) : my_max;
       }
+      my_work += slots * c;
       if (c > 0) atomicAdd(&s_parts, 1u);
     }
     __syncthreads();
@@ -277,9 +309,23 @@ __global__ void refine_scan_kernel(const unsigned* __restrict__ pcount,
     }
     __syncthreads();
   }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const u64 m = __shfl_xor_sync(0xffffffffu, my_max, off);
+    my_max = m > my_max ? m : my_max;
+    my_work += __shfl_xor_sync(0xffffffffu, my_work, off);
+  }
+  if ((tid & 31) == 0 && my_work) {
+    atomicMax(&s_max, my_max);
+    atomicAdd(&s_work, my_work);
+  }
+  __syncthreads();
   if (tid == 0) {
     ctr[kCtrItems] = s_carry_item;
     ctr[kCtrParts] = s_parts;
+    ctr[kCtrItemMax] = s_max;
+    ctr[kCtrItemWork] = s_work;
+    ctr[kCtrBlocks] = blocks;
   }
 }
 
@@ -422,6 +468,7 @@ template <int NV>
 __global__ void __launch_bounds__(kThreads, 1) refine_part_kernel(
     const float* __restrict__ data, const float* __restrict__ norms,
     const int* __restrict__ rec_dfs, const int* __restrict__ rec_gid,
+    const long long* __restrict__ start, const int* __restrict__ extent,
     const float* __restrict__ queries, const int* __restrict__ sel_part,
     const int* __restrict__ sel_lo, const int* __restrict__ sel_hi,
     const int2* __restrict__ seg, const int2* __restrict__ items,
@@ -533,7 +580,8 @@ __global__ void __launch_bounds__(kThreads, 1) refine_part_kernel(
                          : make_float4(0.f, 0.f, 0.f, 0.f);
         }
     }
-    const long long pbase = static_cast<long long>(s_part) * cap;
+    const long long pbase = start[s_part];
+    const int ext = extent[s_part];
 
     // the first covering entry of query g's segment for tag dfs, or -1
     auto cover = [&](int g, int dfs) -> int {
@@ -553,20 +601,20 @@ __global__ void __launch_bounds__(kThreads, 1) refine_part_kernel(
       return -1;
     };
 
-    for (int c0 = 0; c0 < cap;) {
+    for (int c0 = 0; c0 < ext;) {
       // ---- tags: the slots some query of the item keeps, listed with the
       // queries that keep them, kScan slots a pass --------------------------
       if (tid == 0) s_nev = 0;
       __syncthreads();
       int nev = 0;
-      while (c0 < cap && nev <= kEv - kScan) {
+      while (c0 < ext && nev <= kEv - kScan) {
         int gid[kScanPer], dfs[kScanPer];
 #pragma unroll
         for (int u = 0; u < kScanPer; ++u) {
           const int c = c0 + u * kThreads + tid;
           gid[u] = -1;
           dfs[u] = 0;
-          if (c < cap) {
+          if (c < ext) {
             gid[u] = __ldg(rec_gid + pbase + c);
             dfs[u] = __ldg(rec_dfs + pbase + c);
           }
@@ -811,6 +859,7 @@ __global__ void refine_merge_kernel(const u64* __restrict__ lists,
                                     const unsigned* __restrict__ qsegs,
                                     const int* __restrict__ sel_part,
                                     const int* __restrict__ rec_gid,
+                                    const long long* __restrict__ start,
                                     float* __restrict__ out_d2,
                                     int* __restrict__ out_gid, int nlists,
                                     int mp, int cap, int k) {
@@ -950,8 +999,7 @@ __global__ void refine_merge_kernel(const u64* __restrict__ lists,
       const int f = static_cast<int>(key & 0xFFFFFFFFull);
       const int s = f / cap;
       d2 = __uint_as_float(static_cast<unsigned>(key >> 32));
-      gid = rec_gid[static_cast<long long>(sel_part[q * mp + s]) * cap +
-                    (f - s * cap)];
+      gid = rec_gid[start[sel_part[q * mp + s]] + (f - s * cap)];
     }
     out_d2[static_cast<long long>(q) * k + i] = d2;
     out_gid[static_cast<long long>(q) * k + i] = gid;
@@ -1074,25 +1122,41 @@ __device__ __forceinline__ u64 merge_at(const u64* a, int la, const u64* b,
   return (j >= lb || (lo < la && a[lo] <= b[j])) ? a[lo] : b[j];
 }
 
-// Per query: meta[q] = pad entries | blocks << 32, and meta[qn + q] = 0,
-// the counter its blocks take chunks from.
+// A warp per query: meta[q] = pad entries | live slots << 32, the live
+// slots being the extents of its live entries' partitions (below mp * cap
+// < 2^31), and meta[qn + q] = 0, the counter its blocks take chunks from.
 __global__ void refine_plan_kernel(const int* __restrict__ sel_part,
-                                   u64* __restrict__ meta, int qn, int mp,
-                                   int cap, int splits, long long target) {
+                                   const int* __restrict__ extent,
+                                   u64* __restrict__ meta, int qn, int mp) {
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (q >= qn) return;
+  const int* row = sel_part + static_cast<long long>(q) * mp;
+  int lo = 0, hi = mp;                     // first live entry
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (row[mid] < 0) lo = mid + 1; else hi = mid;
+  }
+  unsigned long long live = 0;
+  for (int s = lo + lane; s < mp; s += 32) live += __ldg(extent + row[s]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) live += __shfl_xor_sync(0xffffffffu, live, off);
+  if (lane == 0) {
+    meta[q] = static_cast<unsigned>(lo) | live << 32;
+    meta[qn + q] = 0;                      // the query's chunk counter
+  }
+}
+
+// One block: each query's blocks, in proportion to its live slots, into
+// the high half of meta[q] (which held those slots).
+__global__ void refine_split_kernel(u64* __restrict__ meta, int qn, int splits,
+                                    long long target) {
   __shared__ unsigned long long s_total;
   if (threadIdx.x == 0) s_total = 0;
   __syncthreads();
-  for (int q = threadIdx.x; q < qn; q += blockDim.x) {
-    const int* row = sel_part + static_cast<long long>(q) * mp;
-    int lo = 0, hi = mp;                   // first live entry
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (row[mid] < 0) lo = mid + 1; else hi = mid;
-    }
-    meta[q] = static_cast<unsigned>(lo);
-    meta[qn + q] = 0;                      // the query's chunk counter
-    atomicAdd(&s_total, static_cast<unsigned long long>(mp - lo) * cap);
-  }
+  unsigned long long mine = 0;
+  for (int q = threadIdx.x; q < qn; q += blockDim.x) mine += meta[q] >> 32;
+  atomicAdd(&s_total, mine);
   __syncthreads();
   // rounding each query's count up adds at most one block per query: keep
   // the batch within one wave of `target` blocks where it can
@@ -1100,10 +1164,10 @@ __global__ void refine_plan_kernel(const int* __restrict__ sel_part,
   long long chunk = climber::ceil_div(static_cast<long long>(s_total), room);
   chunk = chunk > kMinChunk ? chunk : kMinChunk;
   for (int q = threadIdx.x; q < qn; q += blockDim.x) {
-    const long long live = static_cast<long long>(mp - static_cast<int>(meta[q])) * cap;
+    const long long live = static_cast<long long>(meta[q] >> 32);
     long long s = climber::ceil_div(live, chunk);
     s = s < 1 ? 1 : (s > splits ? splits : s);
-    meta[q] |= static_cast<u64>(s) << 32;
+    meta[q] = (meta[q] & 0xFFFFFFFFull) | static_cast<u64>(s) << 32;
   }
 }
 
@@ -1131,6 +1195,7 @@ template <int NV>
 __global__ void __launch_bounds__(kThreads, 2) refine_partial_kernel(
     const float* __restrict__ data, const float* __restrict__ norms,
     const int* __restrict__ rec_dfs, const int* __restrict__ rec_gid,
+    const long long* __restrict__ start, const int* __restrict__ extent,
     const float* __restrict__ queries, const int* __restrict__ sel_part,
     const int* __restrict__ sel_lo, const int* __restrict__ sel_hi,
     u64* __restrict__ partial, const u64* __restrict__ meta,
@@ -1159,8 +1224,11 @@ __global__ void __launch_bounds__(kThreads, 2) refine_partial_kernel(
   int* sp_s = reinterpret_cast<int*>(q_s + n_pad);        // [mp - first_live]
   int* lo_s = sp_s + mp;
   int* hi_s = lo_s + mp;
-  int* seg_s = hi_s + mp;                                 // segment start
-  __shared__ int s_nev, s_nbuf, s_base;
+  // pre_s[i]: the live slots of the live entries before entry first_live +
+  // i (their partitions' extents laid end to end); pre_s[L] all of them
+  int* pre_s = hi_s + mp;                                 // [L + 1]
+  const int L = mp - first_live;
+  __shared__ int s_nev, s_nbuf, s_base, s_wsum[kWarps];
   __shared__ u64 s_thresh;
   __shared__ float s_q2;
 
@@ -1177,26 +1245,42 @@ __global__ void __launch_bounds__(kThreads, 2) refine_partial_kernel(
     s_thresh = kEmpty;
   }
   __syncthreads();
-  for (int s = first_live + tid; s < mp; s += kThreads) {
-    int t = s;
-    while (t > first_live && sp_s[t - 1 - first_live] == sp_s[s - first_live]) --t;
-    seg_s[s - first_live] = t;
-  }
   if (warp == 0) {
     float acc = 0.f;
     for (int i = lane; i < n; i += 32) acc = fmaf(q_s[i], q_s[i], acc);
     acc = climber::warp_sum(acc);
     if (lane == 0) s_q2 = acc;
   }
+  int carry = 0;                       // an exclusive scan of the extents
+  for (int b0 = 0; b0 < L; b0 += kThreads) {
+    const int i = b0 + tid;
+    const int e = i < L ? __ldg(extent + sp_s[i]) : 0;
+    int v = e;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, v, off);
+      v += lane >= off ? t : 0;
+    }
+    if (lane == 31) s_wsum[warp] = v;
+    __syncthreads();
+    int before = 0, all = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? s_wsum[w] : 0;
+      all += s_wsum[w];
+    }
+    if (i < L) pre_s[i] = carry + before + v - e;
+    carry += all;
+    __syncthreads();                   // before s_wsum is written again
+  }
+  if (tid == 0) pre_s[L] = carry;
   __syncthreads();
 
-  // the query's live flat range (pads sort first), taken kScan slots at a
-  // time from a counter its blocks share, so they finish together however
-  // many records each chunk keeps
-  const int first = first_live * cap;
-  const int end = mp * cap;
-  const unsigned long long chunks =
-      (static_cast<long long>(end) - first + kScan - 1) / kScan;
+  // the query's live slots (pads sort first), taken kScan at a time from a
+  // counter its blocks share, so they finish together however many records
+  // each chunk keeps; a dense store's live slots are its live flat range
+  const int live = pre_s[L];
+  const unsigned long long chunks = (static_cast<long long>(live) + kScan - 1) / kScan;
   const float q2 = s_q2;
   const int n4 = n / 4;
   const unsigned lt_mask = (1u << lane) - 1u;
@@ -1205,44 +1289,59 @@ __global__ void __launch_bounds__(kThreads, 2) refine_partial_kernel(
   for (;;) {
     if (tid == 0) {
       const unsigned long long c = atomicAdd(work + q, 1ull);
-      s_base = c < chunks ? first + static_cast<int>(c) * kScan : end;
+      s_base = c < chunks ? static_cast<int>(c) * kScan : live;
     }
     __syncthreads();
     const int base = s_base;
     // ---- tags: the inclusion predicate of kScanPer slots per thread -----
-    int gid[kScanPer], dfs[kScanPer];
+    // live slot i lies in the live entry e with pre_s[e] <= i < pre_s[e + 1]
+    // (found once, then walked: a thread's slots ascend), at slot
+    // c = i - pre_s[e] of its partition and flat index (first_live + e) *
+    // cap + c
+    int gid[kScanPer], dfs[kScanPer], f[kScanPer], sl[kScanPer];
+    int e = 0;
+    if (base + tid < live) {
+      int hi = L - 1;
+      while (e < hi) {
+        const int mid = (e + hi + 1) >> 1;
+        if (pre_s[mid] <= base + tid) e = mid; else hi = mid - 1;
+      }
+    }
 #pragma unroll
     for (int u = 0; u < kScanPer; ++u) {
-      const int f = base + u * kThreads + tid;
+      const int i = base + u * kThreads + tid;
       gid[u] = -1;
-      if (f < end) {
-        const int s = f / cap;
-        const long long slot =
-            static_cast<long long>(sp_s[s - first_live]) * cap + (f - s * cap);
+      sl[u] = 0;
+      f[u] = 0;
+      if (i < live) {
+        while (pre_s[e + 1] <= i) ++e;
+        const int c = i - pre_s[e];
+        const long long slot = __ldg(start + sp_s[e]) + c;
         gid[u] = __ldg(rec_gid + slot);
         dfs[u] = __ldg(rec_dfs + slot);
+        sl[u] = e;
+        f[u] = (first_live + e) * cap + c;
       }
     }
     bool near_full = false;
 #pragma unroll
     for (int u = 0; u < kScanPer; ++u) {
-      const int f = base + u * kThreads + tid;
       bool keep = gid[u] >= 0;
       if (keep) {
-        const int s = f / cap;
-        const int sl = s - first_live;
-        keep = dfs[u] >= lo_s[sl] && dfs[u] < hi_s[sl];
-        for (int t = seg_s[sl] - first_live; keep && t < sl; ++t)
+        const int t0 = sl[u];
+        keep = dfs[u] >= lo_s[t0] && dfs[u] < hi_s[t0];
+        // the earlier entries of its segment (the same partition)
+        for (int t = t0 - 1; keep && t >= 0 && sp_s[t] == sp_s[t0]; --t)
           if (dfs[u] >= lo_s[t] && dfs[u] < hi_s[t]) keep = false;
       }
       const unsigned m = __ballot_sync(0xffffffffu, keep);
       int pos = 0;
       if (lane == 0 && m) pos = atomicAdd(&s_nev, __popc(m));
       pos = __shfl_sync(0xffffffffu, pos, 0);
-      if (keep) ev[pos + __popc(m & lt_mask)] = f;
+      if (keep) ev[pos + __popc(m & lt_mask)] = f[u];
       near_full |= lane == 0 && pos + __popc(m) > kEv - kScan;
     }
-    const bool done = base >= end;
+    const bool done = base >= live;
     if (!__syncthreads_or(near_full) && !done) continue;
 
     // ---- rows: each warp streams R kept rows at a time, with their norms;
@@ -1263,7 +1362,7 @@ __global__ void __launch_bounds__(kThreads, 2) refine_partial_kernel(
       long long my_slot;
       {
         const int s = fr / cap;
-        my_slot = static_cast<long long>(sp_s[s - first_live]) * cap + (fr - s * cap);
+        my_slot = __ldg(start + sp_s[s - first_live]) + (fr - s * cap);
       }
       const float nrm = live_row ? __ldg(norms + my_slot) : 0.f;
       long long slot[R];
@@ -1356,6 +1455,7 @@ __global__ void refine_merge_kernel(const u64* __restrict__ partial,
                                     const u64* __restrict__ meta,
                                     const int* __restrict__ sel_part,
                                     const int* __restrict__ rec_gid,
+                                    const long long* __restrict__ start,
                                     unsigned* __restrict__ seen,
                                     u64* __restrict__ sharing,
                                     float* __restrict__ out_d2,
@@ -1427,8 +1527,7 @@ __global__ void refine_merge_kernel(const u64* __restrict__ partial,
       const int f = static_cast<int>(key & 0xFFFFFFFFull);
       const int s = f / cap;
       d2 = __uint_as_float(static_cast<unsigned>(key >> 32));
-      gid = rec_gid[static_cast<long long>(sel_part[q * mp + s]) * cap +
-                    (f - s * cap)];
+      gid = rec_gid[start[sel_part[q * mp + s]] + (f - s * cap)];
     }
     out_d2[static_cast<long long>(q) * k + i] = d2;
     out_gid[static_cast<long long>(q) * k + i] = gid;
@@ -1466,16 +1565,21 @@ CLIMBER_API long long climber_refine_scratch_bytes(int q, int mp, int p, int k,
   return layout(q, mp, p, k, nlists, group).total;
 }
 
+// The store is flat (see the top of this file): data [R, n], norms / rec_dfs
+// / rec_gid [R], start [p] (int64) and extent [p] (each at most cap).
 // scratch: climber_refine_scratch_bytes(q, mp, p, k, nlists, group) bytes;
-// stats: 2 u64 written with the live (query, partition) segments and the
-// distinct planned partitions; out_d2 / out_gid: [q, k].  `group` is the
-// most queries an item holds (at most climber_refine_group(n, k)).
+// stats: 5 u64 written with the live (query, partition) segments, the
+// distinct planned partitions, the largest item's and all items' (slots x
+// queries) and the scoring grid's blocks; out_d2 / out_gid: [q, k].
+// `group` is the most queries an item holds (at most
+// climber_refine_group(n, k)).
 CLIMBER_API int climber_refine_topk(
     const float* data, const float* norms, const int* rec_dfs,
-    const int* rec_gid, const float* queries, const int* sel_part,
-    const int* sel_lo, const int* sel_hi, void* scratch,
-    unsigned long long* stats, float* out_d2, int* out_gid, int q, int mp,
-    int p, int cap, int n, int k, int nlists, int group, void* stream) {
+    const int* rec_gid, const long long* start, const int* extent,
+    const float* queries, const int* sel_part, const int* sel_lo,
+    const int* sel_hi, void* scratch, unsigned long long* stats, float* out_d2,
+    int* out_gid, int q, int mp, int p, int cap, int n, int k, int nlists,
+    int group, void* stream) {
   if (q <= 0) return static_cast<int>(cudaSuccess);
   int gmax = 0, tile = 0, stages = 0;
   if (mp <= 0 || p <= 0 || cap <= 0 || n <= 0 || k <= 0 || nlists <= 0 ||
@@ -1497,27 +1601,28 @@ CLIMBER_API int climber_refine_topk(
   unsigned* pcount = reinterpret_cast<unsigned*>(base + l.pcount);
   unsigned* pcur = reinterpret_cast<unsigned*>(base + l.pcur);
 
-  cudaError_t err = cudaMemsetAsync(base + l.zero_from, 0, l.total - l.zero_from, s);
+  const int vec4 = (n % 4 == 0) && (reinterpret_cast<uintptr_t>(data) % 16 == 0);
+  const void* kernel = part_kernel_for(n, vec4);
+  const size_t smem1 = static_cast<size_t>(part_smem(n, k, group, tile, stages));
+  cudaError_t err = climber::allow_smem(kernel, smem1);
+  unsigned blocks = 0;
+  if (err == cudaSuccess)
+    err = climber::persistent_blocks(kernel, kThreads, smem1, 1LL << 30, &blocks);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(base + l.zero_from, 0, l.total - l.zero_from, s);
   if (err == cudaSuccess) err = cudaMemsetAsync(bound, 0xFF, 8LL * q, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned row_blocks = static_cast<unsigned>(climber::ceil_div(q, kWarps));
   refine_count_kernel<<<row_blocks, kThreads, 0, s>>>(sel_part, pcount, qsegs, ctr, q, mp);
-  refine_scan_kernel<<<1, 1024, 0, s>>>(pcount, pstart, items, ctr, p, group);
+  refine_scan_kernel<<<1, 1024, 0, s>>>(pcount, extent, pstart, items, ctr, p, group,
+                                        blocks);
   refine_scatter_kernel<<<row_blocks, kThreads, 0, s>>>(sel_part, pstart, pcur, seg, q, mp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int vec4 = (n % 4 == 0) && (reinterpret_cast<uintptr_t>(data) % 16 == 0);
-  const void* kernel = part_kernel_for(n, vec4);
-  const size_t smem1 = static_cast<size_t>(part_smem(n, k, group, tile, stages));
-  err = climber::allow_smem(kernel, smem1);
-  unsigned blocks = 0;
-  if (err == cudaSuccess)
-    err = climber::persistent_blocks(kernel, kThreads, smem1, 1LL << 30, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&data, &norms, &rec_dfs, &rec_gid, &queries, &sel_part,
-                  &sel_lo, &sel_hi, &seg, &items, &ctr, &lists, &bound, &locks, &mp,
-                  &cap, &n, &k, &nlists, &tile, &stages,
+  void* args[] = {&data, &norms, &rec_dfs, &rec_gid, &start, &extent, &queries,
+                  &sel_part, &sel_lo, &sel_hi, &seg, &items, &ctr, &lists, &bound,
+                  &locks, &mp, &cap, &n, &k, &nlists, &tile, &stages,
                   const_cast<int*>(&vec4)};
   err = cudaLaunchKernel(kernel, dim3(blocks), dim3(kThreads), args, smem1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1526,17 +1631,17 @@ CLIMBER_API int climber_refine_topk(
   err = climber::allow_smem(refine_merge_kernel, smem2);
   if (err != cudaSuccess) return static_cast<int>(err);
   refine_merge_kernel<<<q, kMergeThreads, smem2, s>>>(
-      lists, qsegs, sel_part, rec_gid, out_d2, out_gid, nlists, mp, cap, k);
+      lists, qsegs, sel_part, rec_gid, start, out_d2, out_gid, nlists, mp, cap, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaMemcpyAsync(stats, ctr + kCtrPairs, 2 * sizeof(u64),
+  return static_cast<int>(cudaMemcpyAsync(stats, ctr + kCtrPairs, kCtrStats * sizeof(u64),
                                           cudaMemcpyDeviceToDevice, s));
 }
 
 // Shared memory the two kernels need for a call (bytes); the wrapper checks
 // these against the card's limit before it picks the number of splits.
 CLIMBER_API long long climber_refine_partial_smem(int mp, int n, int k) {
-  return 8LL * (2LL * k + qm::kBuf) + 4LL * qm::kEv + 4LL * ((n + 3) & ~3) + 16LL * mp;
+  return 8LL * (2LL * k + qm::kBuf) + 4LL * qm::kEv + 4LL * ((n + 3) & ~3) + 16LL * mp + 4;
 }
 
 CLIMBER_API long long climber_refine_partial_merge_smem(int splits, int k) {
@@ -1552,17 +1657,19 @@ CLIMBER_API long long climber_refine_partial_scratch_bytes(int q, int p, int k,
          4LL * p;
 }
 
-// partial: climber_refine_partial_scratch_bytes(q, p, k, splits) bytes (the
-// partial lists, then each query's plan summary, then its chunk counter,
-// then the sharing counters and the partitions' flags); stats: 2 u64
-// written as the partition-major design writes them; out_d2 / out_gid:
-// [q, k].  `splits` is the most blocks a query may get.
+// The store as climber_refine_topk takes it.  partial:
+// climber_refine_partial_scratch_bytes(q, p, k, splits) bytes (the partial
+// lists, then each query's plan summary, then its chunk counter, then the
+// sharing counters and the partitions' flags); stats: 2 u64 written as the
+// partition-major design writes its first two; out_d2 / out_gid: [q, k].
+// `splits` is the most blocks a query may get.
 CLIMBER_API int climber_refine_topk_query_major(
     const float* data, const float* norms, const int* rec_dfs,
-    const int* rec_gid, const float* queries, const int* sel_part,
-    const int* sel_lo, const int* sel_hi, unsigned long long* partial,
-    unsigned long long* stats, float* out_d2, int* out_gid, int q, int mp,
-    int p, int cap, int n, int k, int splits, void* stream) {
+    const int* rec_gid, const long long* start, const int* extent,
+    const float* queries, const int* sel_part, const int* sel_lo,
+    const int* sel_hi, unsigned long long* partial, unsigned long long* stats,
+    float* out_d2, int* out_gid, int q, int mp, int p, int cap, int n, int k,
+    int splits, void* stream) {
   if (q <= 0) return static_cast<int>(cudaSuccess);
   if (mp <= 0 || p <= 0 || cap <= 0 || n <= 0 || k <= 0 || splits <= 0 ||
       static_cast<long long>(mp) * cap >= 0x7FFFFFFFLL)
@@ -1582,21 +1689,23 @@ CLIMBER_API int climber_refine_topk_query_major(
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem1);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long target = static_cast<long long>(qm::kWaves) * sms * (per_sm > 0 ? per_sm : 1);
-  qm::refine_plan_kernel<<<1, kThreads, 0, s>>>(sel_part, meta, q, mp, cap, splits, target);
+  qm::refine_plan_kernel<<<static_cast<unsigned>(climber::ceil_div(q, kWarps)), kThreads, 0,
+                           s>>>(sel_part, extent, meta, q, mp);
+  qm::refine_split_kernel<<<1, kThreads, 0, s>>>(meta, q, splits, target);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   u64* work = meta + q;
-  void* args[] = {&data, &norms, &rec_dfs, &rec_gid, &queries, &sel_part,
-                  &sel_lo, &sel_hi, &partial, &meta, &work, &mp, &cap, &n, &k,
-                  const_cast<int*>(&vec4)};
+  void* args[] = {&data, &norms, &rec_dfs, &rec_gid, &start, &extent, &queries,
+                  &sel_part, &sel_lo, &sel_hi, &partial, &meta, &work, &mp, &cap,
+                  &n, &k, const_cast<int*>(&vec4)};
   err = cudaLaunchKernel(kernel, dim3(splits, q), dim3(kThreads), args, smem1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem2 = static_cast<size_t>(climber_refine_partial_merge_smem(splits, k));
   err = climber::allow_smem(qm::refine_merge_kernel, smem2);
   if (err != cudaSuccess) return static_cast<int>(err);
   qm::refine_merge_kernel<<<q, kMergeThreads, smem2, s>>>(
-      partial, meta, sel_part, rec_gid, seen, sharing, out_d2, out_gid, splits, mp,
-      cap, k);
+      partial, meta, sel_part, rec_gid, start, seen, sharing, out_d2, out_gid, splits,
+      mp, cap, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaMemcpyAsync(stats, sharing, 2 * sizeof(u64),

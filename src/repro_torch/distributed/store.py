@@ -17,6 +17,10 @@
 
 Pad slots carry ``rec_gid = rec_dfs = -1``: never a live record, never
 inside a node interval, so a padded store answers as the unpadded one.
+
+Every layout here is of dense stores.  A ragged store
+(``core.index.RaggedStore``) lays out over a one-slot mesh only; the rest
+raise a ``ValueError`` that names its layout.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.index import PartitionStore, store_from_arrays  # noqa: F401
+from repro_torch.core.index import (PartitionStore, RaggedStore, Store, require_dense,
+                                    store_from_arrays)  # noqa: F401
 from repro_torch.launch.mesh import as_mesh
 
 _FILL = {"data": 0, "norms": 0, "rec_dfs": -1, "rec_gid": -1, "count": 0}
@@ -33,6 +38,7 @@ _FILL = {"data": 0, "norms": 0, "rec_dfs": -1, "rec_gid": -1, "count": 0}
 
 def pad_store(store: PartitionStore, multiple: int) -> PartitionStore:
     """Append empty partitions so ``P % multiple == 0`` (no-op when it is)."""
+    require_dense(store, "pad_store")
     pad = (-store.num_partitions) % multiple
     if pad == 0:
         return store
@@ -67,15 +73,17 @@ def _inert_store(like: PartitionStore, device) -> PartitionStore:
                           full((1,), 0, like.count.dtype))
 
 
-def to_device(store: PartitionStore, device) -> PartitionStore:
+def to_device(store: Store, device) -> Store:
     """The store on ``device``: itself when it is there, else a copy."""
     if store.data.device == torch.device(device):
         return store
-    return PartitionStore(*(x.to(device) for x in store))
+    return type(store)(*(x.to(device) if isinstance(x, torch.Tensor) else x
+                         for x in store))
 
 
-def shard_store(store: PartitionStore, mesh) -> List[PartitionStore]:
+def shard_store(store: Store, mesh) -> List[Store]:
     """Lay ``store`` out over ``mesh``: one store per slot, on its device.
+    A ragged store takes a mesh of one slot only.
 
     Slot d holds the partitions ``[d·per, (d+1)·per)`` of
     :func:`slot_range`.  A slot on the store's own device gets views of its
@@ -84,6 +92,9 @@ def shard_store(store: PartitionStore, mesh) -> List[PartitionStore]:
     a slot with no real partition gets a one-slot inert store.
     """
     mesh = as_mesh(mesh)
+    if mesh.size == 1 and isinstance(store, RaggedStore):
+        return [to_device(store, mesh.slots[0])]
+    require_dense(store, "shard_store over several slots")
     out = []
     for d, dev in enumerate(mesh.slots):
         lo, hi = slot_range(store.num_partitions, mesh.size, d)
@@ -109,6 +120,8 @@ def _assemble(stores: Sequence[PartitionStore], gid_maps, lead: tuple,
     """Allocate every field as ``lead + (cap, ...)`` filled with its pad
     value (``count`` as ``lead``) and copy store ``i`` into ``slot(i)``:
     one copy of the stores, with no padded intermediates."""
+    for st in stores:
+        require_dense(st, "a stacked or concatenated store")
     cap = max(s.capacity for s in stores)
     out = PartitionStore(*[
         torch.full(lead + ((cap,) + tuple(x.shape[2:]) if x.dim() > 1 else ()),
@@ -160,5 +173,6 @@ def concat_stores(stores: Sequence[PartitionStore],
 def store_to_arrays(store: PartitionStore, prefix: str = "store_"):
     """Host-array dict of every store field (the snapshot wire format),
     keyed ``f"{prefix}{field}"``; inverse of ``store_from_arrays``."""
+    require_dense(store, "store_to_arrays (the snapshot format)")
     return {prefix + name: getattr(store, name).cpu().numpy()
             for name in PartitionStore._fields}

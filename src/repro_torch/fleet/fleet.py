@@ -85,7 +85,7 @@ import torch
 
 from repro_torch.core.index import (ClimberIndex, PartitionStore,
                                     _route_full_dataset, build_index,
-                                    build_store, sample_size)
+                                    build_store, require_dense, sample_size)
 from repro_torch.core.query import (candidates_scanned, exhaustive_selection,
                                     knn_query, plan)
 from repro_torch.core.refine import (PAD_DIST, dispatch_refine, merge_topk,
@@ -276,6 +276,9 @@ class DeltaShard:
                  draws: FleetDraws, pad: Optional[int] = None, seed: int = 0):
         self.cfg = cfg.replace(
             partition_pad=pad if pad is not None else cfg.capacity)
+        if self.cfg.partition_pad == 0:
+            raise ValueError("a delta shard inserts into pad slots: it takes a dense "
+                             "PartitionStore, not the ragged layout (partition_pad=0)")
         self.device = device
         self._draws = draws
         self._seed = seed
@@ -318,7 +321,7 @@ class DeltaShard:
         records into free partition slots, in place.  False = some
         partition is full (the caller rebuilds)."""
         idx = self.index
-        store = idx.store
+        store = require_dense(idx.store, "a delta shard's insert")
         x = torch.as_tensor(batch, device=self.device).float()
         part, rec_dfs = _route_full_dataset(x, idx.pivots, idx.centroid_onehot,
                                             idx.trie, idx.cfg)

@@ -35,6 +35,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.index import require_dense
+
 
 @dataclass(frozen=True)
 class MergePolicy:
@@ -55,7 +57,7 @@ def shard_records(handle) -> Tuple[torch.Tensor, np.ndarray]:
     comes back bit-exact (``data`` on the shard's device) — which is what
     makes a merged rebuild answer-preserving.
     """
-    store = handle.index.store
+    store = require_dense(handle.index.store, "shard_records (a merge)")
     live = store.rec_gid >= 0
     out = torch.empty((handle.num_records, store.data.shape[-1]),
                       dtype=torch.float32, device=store.data.device)

@@ -50,7 +50,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.index import ClimberIndex, store_from_arrays
+from repro_torch.core.index import ClimberIndex, require_dense, store_from_arrays
 from repro_torch.core.traversal import TrieDevice
 from repro_torch.core.trie import TrieForest
 from repro_torch.distributed.store import store_to_arrays
@@ -111,6 +111,7 @@ def save_shard(dir_: Path, handle) -> Path:
     """Atomically snapshot one sealed :class:`~repro_torch.fleet.ShardHandle`."""
     dir_ = Path(dir_)
     idx: ClimberIndex = handle.index
+    require_dense(idx.store, "save_shard (a snapshot)")
     tmp = _atomic_dir(dir_)
     arrays: Dict[str, np.ndarray] = store_to_arrays(idx.store)
     arrays["pivots"] = idx.pivots.cpu().numpy()

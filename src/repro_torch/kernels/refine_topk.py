@@ -4,26 +4,40 @@ kernel and plain version.
 Replaces ``repro/kernels/refine_topk.py::refine_topk``.  Contract (the
 reference's): the ``[Q, MP]`` plan is sorted by partition id along the entry
 axis, pads (``-1``) first.  For each query and plan entry the candidates are
-the ``cap`` slots of partition ``sel_part[q, s]`` at flat index
+the slots of partition ``sel_part[q, s]``, slot ``c`` at flat index
 ``s * cap + c``; a record is kept iff its gid ≥ 0, its DFS tag lies in
 ``[sel_lo, sel_hi)``, and no earlier entry of the same partition covers it.
 Output: the ``k`` best ``(d², gid)`` by ``(d², flat index)``, ``3.4e38``/``-1``
 where fewer than ``k`` candidates exist.
 
+Two layouts of the store, one addressing.  A dense store is
+``[P, cap, n]`` rows with ``[P, cap]`` norms, tags and ids, every partition
+padded to ``cap`` slots (``rec_gid = -1`` past its records).  A ragged
+store (``core.index.RaggedStore``) is flat: ``[R, n]`` rows and ``[R]``
+columns in partition order, with a :class:`Ragged` of each partition's
+first row ``start`` (int64) and its ``extent`` (its record count), and
+``cap`` the largest extent.  Every path addresses partition ``p``'s slot
+``c < extent[p]`` as row ``start[p] + c`` in 64 bits; a dense store passes
+itself as its flat view, ``start = p · cap`` and ``extent = cap``
+(:func:`flat_store`), so both layouts run the same kernels and the same
+plain code, and a ragged store answers bit for bit as its dense
+counterpart (the key's flat index keeps ``cap``, the fullest extent).
+
 The kernel is ``csrc/refine_topk.cu``, in two designs that give the same
 bits (see the source).  Partition-major, for plans whose partitions many
 queries name: the plan is inverted on the card into (query, partition)
-segments grouped by partition; a block reads each planned partition's tags
-once, streams the rows some query of its item keeps into shared memory
-once, and scores every such query from there, each dot summed in the
-query-major design's order; each query's per-partition k best go to a few
-lists of its own, cut early by a bound on its k-th key that every block
-lowers, and a per-query kernel sorts the k best of its lists.  Query-major,
-for the rest: blocks per query in proportion to its live slots stream its
-kept rows, and a per-query merge of their sorted lists by merge path.  Both
-are bound by HBM bytes: each distinct kept record's row and norm once, and
-the tags.  The plain version gathers the ``[Q, MP, cap, n]`` candidate rows,
-so it only fits small plans.
+segments grouped by partition; a block takes an item (a planned partition
+and at most ``group`` of its queries), reads the partition's tags once,
+streams the rows some query of its item keeps into shared memory once, and
+scores every such query from there, each dot summed in the query-major
+design's order; each query's per-partition k best go to a few lists of its
+own, cut early by a bound on its k-th key that every block lowers, and a
+per-query kernel sorts the k best of its lists.  Query-major, for the rest: blocks
+per query in proportion to its live slots stream its kept rows, and a
+per-query merge of their sorted lists by merge path.  Both are bound by
+HBM bytes: each distinct kept record's row and norm once, and the tags.
+The plain version gathers the ``[Q, MP, cap, n]`` candidate rows, so it
+only fits small plans.
 
 Every call records how much sharing its plan has, live (query, partition)
 pairs over distinct planned partitions, in the histogram
@@ -31,13 +45,17 @@ pairs over distinct planned partitions, in the histogram
 on the card either design counts it (the partition-major design in its
 inversion, the query-major one in its merge), and it is read back into
 pinned memory with no sync of its own and observed at a later call (or by
-:func:`flush_sharing`); the plain version observes it from the plan.
+:func:`flush_sharing`); the plain version observes it from the plan.  A
+partition-major call also observes ``refine.item_tail``, counted in its
+inversion and read back alike: its largest item's (slots × queries) over
+the items' total per persistent scoring block.  Above 1, one item outlasts
+the grid's even share of the call.
 """
 from __future__ import annotations
 
 import functools
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,6 +64,7 @@ from repro_torch.obs.registry import REGISTRY
 
 PAD_D2 = 3.4e38          # squared-distance sentinel of a pad answer
 SHARING = "refine.queries_per_partition"
+ITEM_TAIL = "refine.item_tail"
 MAX_LISTS = 64           # lists a query's partitions' k-best go to, at most
 MAX_SPLITS = 64          # blocks a query gets in the query-major design, at most
 # plan entries a partition (Q * MP / P, pads included) from which a call
@@ -55,6 +74,52 @@ MAX_SPLITS = 64          # blocks a query gets in the query-major design, at mos
 # 1,054-2,108; the smoke's and the kNN-LM's batches of 64 have 5-27
 # (PERF.md §6)
 PARTITION_MAJOR_MIN = 320
+
+
+class Ragged(NamedTuple):
+    """Where each partition's rows lie in a flat store."""
+
+    start: torch.Tensor     # [P] int64 first row of each partition
+    extent: torch.Tensor    # [P] int32 its slots
+    cap: int                # the largest extent: a plan entry's stride in a key
+
+
+@functools.lru_cache(maxsize=32)
+def dense_ragged(p: int, cap: int, device: torch.device) -> Ragged:
+    """The :class:`Ragged` of a dense ``[P, cap]`` store's flat view."""
+    return Ragged(torch.arange(p, dtype=torch.int64, device=device) * cap,
+                  torch.full((p,), cap, dtype=torch.int32, device=device), cap)
+
+
+def flat_store(data, norms, rec_dfs, rec_gid, ragged: Optional[Ragged] = None):
+    """``(rows [R, n], norms [R], rec_dfs [R], rec_gid [R], ragged)``: a
+    ragged store as it is, a dense ``[P, cap, ...]`` one (``ragged`` None)
+    as its flat view with ``start = p · cap`` and ``extent = cap``."""
+    if ragged is not None:
+        return data, norms, rec_dfs, rec_gid, ragged
+    p, cap = rec_gid.shape
+    return (data.reshape(p * cap, data.shape[-1]), norms.reshape(-1),
+            *_flat_tags(rec_dfs, rec_gid, None))
+
+
+def _flat_tags(rec_dfs, rec_gid, ragged: Optional[Ragged]):
+    """``(rec_dfs [R], rec_gid [R], ragged)`` of either layout's tags."""
+    if ragged is not None:
+        return rec_dfs, rec_gid, ragged
+    p, cap = rec_gid.shape
+    return (rec_dfs.reshape(-1), rec_gid.reshape(-1),
+            dense_ragged(p, cap, rec_gid.device))
+
+
+def entry_rows(ragged: Ragged, sel_part: torch.Tensor):
+    """``(row [Q, MP, cap] int64, inside [Q, MP, cap] bool)``: the flat row
+    of each plan entry's slot ``c`` (``start + c``; 0 past the partition's
+    extent) and whether ``c`` lies within it.  Pads read partition 0."""
+    pid = torch.clamp(sel_part, min=0).long()
+    c = torch.arange(ragged.cap, device=sel_part.device)
+    inside = c < ragged.extent[pid][..., None]
+    row = torch.where(inside, ragged.start[pid][..., None] + c, 0)
+    return row, inside
 
 
 def dedupe_segments(sel_part: torch.Tensor, incl: torch.Tensor) -> torch.Tensor:
@@ -78,16 +143,20 @@ def dedupe_segments(sel_part: torch.Tensor, incl: torch.Tensor) -> torch.Tensor:
 
 
 def masked_distances(data, norms, rec_dfs, rec_gid, queries,
-                     sel_part, sel_lo, sel_hi, dot_fn=None):
+                     sel_part, sel_lo, sel_hi, dot_fn=None, *,
+                     ragged: Optional[Ragged] = None):
     """Dense ``[Q, MP·cap]`` masked squared ED (``PAD_D2`` where excluded)
-    and gids (``-1``) over a partition-sorted plan.
+    and gids (``-1``) over a partition-sorted plan, on either layout
+    (``ragged``: the flat store's offsets; None: a dense store).
 
     ``dot_fn(q [Q, n], rows [Q, MP, cap, n]) -> [Q, MP, cap]`` computes the
     dots; None is the plain expression (``ops.batched_query_dots`` runs the
     same through the ``qdots`` kernel on the card)."""
+    data, norms, rec_dfs, rec_gid, ragged = flat_store(data, norms, rec_dfs,
+                                                       rec_gid, ragged)
     q = queries.float()
-    pid = torch.clamp(sel_part, min=0).long()                  # clamp pads
-    rows = data[pid]                                           # [Q, MP, cap, n]
+    row, inside = entry_rows(ragged, sel_part)
+    rows = data[row]                                           # [Q, MP, cap, n]
     # an elementwise product and a last-axis sum, not a batched matmul, so
     # each row's dot is summed in one order whatever the batch (a query's
     # answer does not depend on the batch it rides in)
@@ -96,38 +165,46 @@ def masked_distances(data, norms, rec_dfs, rec_gid, queries,
     else:
         dots = dot_fn(q, rows)
     q2 = (q * q).sum(dim=-1)
-    d2 = torch.clamp(q2[:, None, None] - 2.0 * dots + norms[pid], min=0.0)
-    incl = kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi)
-    rgid = rec_gid[pid]
+    d2 = torch.clamp(q2[:, None, None] - 2.0 * dots + norms[row], min=0.0)
+    incl = _kept(rec_dfs[row], rec_gid[row], inside, sel_part, sel_lo, sel_hi)
+    rgid = rec_gid[row]
     qn = queries.shape[0]
     d2 = torch.where(incl, d2, torch.full_like(d2, PAD_D2)).reshape(qn, -1)
     gid = torch.where(incl, rgid, torch.full_like(rgid, -1)).reshape(qn, -1)
     return d2, gid
 
 
-def kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi) -> torch.Tensor:
-    """``[Q, MP, cap]`` bool over a partition-sorted plan: the slots the
-    fused refine keeps (gid ≥ 0, DFS tag in ``[sel_lo, sel_hi)``, entry not
-    a pad, and not covered by an earlier entry of the same partition)."""
-    pid = torch.clamp(sel_part, min=0).long()
-    rdfs, rgid = rec_dfs[pid], rec_gid[pid]
+def _kept(rdfs, rgid, inside, sel_part, sel_lo, sel_hi) -> torch.Tensor:
     in_node = (rdfs >= sel_lo[:, :, None]) & (rdfs < sel_hi[:, :, None])
-    incl = (rgid >= 0) & in_node & (sel_part >= 0)[:, :, None]
+    incl = inside & (rgid >= 0) & in_node & (sel_part >= 0)[:, :, None]
     return dedupe_segments(sel_part, incl)
 
 
-def refine_work(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi) -> dict:
+def kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi, *,
+               ragged: Optional[Ragged] = None) -> torch.Tensor:
+    """``[Q, MP, cap]`` bool over a partition-sorted plan: the slots the
+    fused refine keeps (within the partition's extent, gid ≥ 0, DFS tag in
+    ``[sel_lo, sel_hi)``, entry not a pad, and not covered by an earlier
+    entry of the same partition)."""
+    rec_dfs, rec_gid, ragged = _flat_tags(rec_dfs, rec_gid, ragged)
+    row, inside = entry_rows(ragged, sel_part)
+    return _kept(rec_dfs[row], rec_gid[row], inside, sel_part, sel_lo, sel_hi)
+
+
+def refine_work(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi, *,
+                ragged: Optional[Ragged] = None) -> dict:
     """What the fused refine must do on a partition-sorted plan, counted
     from its tags alone: ``kept_pairs`` (query, record) distances,
     ``unique_kept_records`` distinct records behind them (the rows a
-    kernel must read at least once), and ``live_slots`` (tags it tests)."""
-    kept = kept_slots(rec_dfs, rec_gid, sel_part, sel_lo, sel_hi)
-    cap = kept.shape[-1]
-    slot = (torch.clamp(sel_part, min=0).long()[:, :, None] * cap
-            + torch.arange(cap, device=kept.device))
+    kernel must read at least once), and ``live_slots`` (tags it tests:
+    the extent of each live entry's partition)."""
+    rec_dfs, rec_gid, ragged = _flat_tags(rec_dfs, rec_gid, ragged)
+    row, inside = entry_rows(ragged, sel_part)
+    kept = _kept(rec_dfs[row], rec_gid[row], inside, sel_part, sel_lo, sel_hi)
+    live = sel_part >= 0
     return {"kept_pairs": int(kept.sum()),
-            "unique_kept_records": int(torch.unique(slot[kept]).numel()),
-            "live_slots": int((sel_part >= 0).sum()) * cap}
+            "unique_kept_records": int(torch.unique(row[kept]).numel()),
+            "live_slots": int(ragged.extent[sel_part[live].long()].sum())}
 
 
 def refine_topk_work(kept_pairs: int, unique_kept_records: int, live_slots: int,
@@ -157,10 +234,11 @@ def topk_flat(d2: torch.Tensor, gid: torch.Tensor, k: int):
 
 
 def refine_topk_plain(data, norms, rec_dfs, rec_gid, queries,
-                      sel_part, sel_lo, sel_hi, k: int):
+                      sel_part, sel_lo, sel_hi, k: int, *,
+                      ragged: Optional[Ragged] = None):
     """Plain PyTorch version of the fused refine (same contract)."""
     d2, gid = masked_distances(data, norms, rec_dfs, rec_gid, queries,
-                               sel_part, sel_lo, sel_hi)
+                               sel_part, sel_lo, sel_hi, ragged=ragged)
     return topk_flat(d2, gid, k)
 
 
@@ -181,17 +259,25 @@ def observe_sharing(pairs: int, partitions: int) -> None:
     REGISTRY.histogram(SHARING).observe(pairs / partitions if partitions else 0.0)
 
 
+def observe_item_tail(largest: int, total: int, blocks: int) -> None:
+    """One observation of ``refine.item_tail``: the largest item's
+    (slots × queries) over the items' total per scoring block (0 for a call
+    with no slots)."""
+    REGISTRY.histogram(ITEM_TAIL).observe(largest * blocks / total if total else 0.0)
+
+
 class _SharingReadback:
-    """The kernel's two counts of each call, copied into pinned memory
-    behind the call on its stream and observed once the copy has landed,
-    at a later call or at :func:`flush_sharing`: no call waits for its own."""
+    """The kernel's counts of each call, copied into pinned memory behind
+    the call on its stream and observed once the copy has landed, at a later
+    call or at :func:`flush_sharing`: no call waits for its own.  Two words
+    (the sharing), or five (a partition-major call's item tail besides)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._pending = []
 
     def push(self, stats: torch.Tensor) -> None:
-        host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+        host = torch.empty(stats.shape[0], dtype=torch.int64, pin_memory=True)
         host.copy_(stats, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(stats.device))
@@ -209,14 +295,17 @@ class _SharingReadback:
                     return
                 self._pending.pop(0)
             done.synchronize()
-            observe_sharing(int(host[0]), int(host[1]))
+            counts = host.tolist()
+            observe_sharing(counts[0], counts[1])
+            if len(counts) == 5:
+                observe_item_tail(*counts[2:])
 
 
 _SHARING = _SharingReadback()
 
 
 def flush_sharing() -> None:
-    """Observe every call's sharing count still in flight (waits for them)."""
+    """Observe every call's counts still in flight (waits for them)."""
     _SHARING.drain(wait=True)
 
 
@@ -249,7 +338,8 @@ def plan_lists(qn: int, mp: int, p: int, n: int, k: int, group: int) -> int:
 
 
 def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
-                sel_hi, k: int, *, splits: Optional[int] = None):
+                sel_hi, k: int, *, splits: Optional[int] = None,
+                ragged: Optional[Ragged] = None):
     """Fused refine through the kernel for CUDA tensors, the plain version
     for CPU tensors, the kernel's outputs and counted work for ``meta``
     tensors.  A ``meta`` plan has no values to dedupe or mask: every entry
@@ -263,8 +353,9 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
     the same answer bit for bit.
 
     Args:
-      data / norms / rec_dfs / rec_gid: the store, ``[P, cap, n]`` f32 /
-        ``[P, cap]`` f32, i32, i32.
+      data / norms / rec_dfs / rec_gid: the store: dense ``[P, cap, n]`` f32
+        / ``[P, cap]`` f32, i32, i32 with ``ragged`` None, or flat ``[R, n]``
+        / ``[R]`` with ``ragged`` its :class:`Ragged`.
       queries: ``[Q, n]`` f32.
       sel_part / sel_lo / sel_hi: ``[Q, MP]`` int32, sorted by partition.
       k: answers per query.
@@ -279,26 +370,20 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
     tensors = (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi)
     if not _lib.on_card(*tensors):
         observe_sharing(*plan_sharing(sel_part))
-        return refine_topk_plain(*tensors, k)
+        return refine_topk_plain(*tensors, k, ragged=ragged)
     qn, n = queries.shape
     mp = sel_part.shape[1]
-    p, cap = norms.shape
     dev = queries.device
     if qn == 0 or mp == 0:
         return (torch.full((qn, k), PAD_D2, dtype=torch.float32, device=dev),
                 torch.full((qn, k), -1, dtype=torch.int32, device=dev))
-    _lib.require(data, "refine data", torch.float32, 3)
-    _lib.require(norms, "refine norms", torch.float32, 2)
-    _lib.require(rec_dfs, "refine rec_dfs", torch.int32, 2)
-    _lib.require(rec_gid, "refine rec_gid", torch.int32, 2)
+    _check_store(data, norms, rec_dfs, rec_gid, n, ragged)
     _lib.require(queries, "refine queries", torch.float32, 2)
     for name, t in (("sel_part", sel_part), ("sel_lo", sel_lo), ("sel_hi", sel_hi)):
         _lib.require(t, f"refine {name}", torch.int32, 2)
         if t.shape != (qn, mp):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(qn, mp)}")
-    if data.shape != (p, cap, n) or rec_dfs.shape != (p, cap) \
-            or rec_gid.shape != (p, cap):
-        raise ValueError("store columns disagree on [P, cap, n]")
+    p, cap = norms.shape if ragged is None else (ragged.start.shape[0], ragged.cap)
     if mp * cap >= 2**31 or qn * mp >= 2**31 or k < 1:
         raise ValueError(f"refine kernel needs MP*cap < 2^31, Q*MP < 2^31 and "
                          f"k >= 1 (Q={qn}, MP={mp}, cap={cap}, k={k})")
@@ -307,25 +392,51 @@ def refine_topk(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
         return _lib.meta_outputs(refine_topk_work(rows, rows, rows, qn, mp, n, k),
                                  ((qn, k), torch.float32), ((qn, k), torch.int32))
     if splits is None and qn * mp >= PARTITION_MAJOR_MIN * p:
-        return _partition_major(*tensors, k)
-    return _query_major(*tensors, k, splits=splits)
+        return _partition_major(*tensors, k, ragged=ragged)
+    return _query_major(*tensors, k, splits=splits, ragged=ragged)
 
 
-def _launch(entry, tensors, k: int, scratch_bytes: int, *sizes):
+def _check_store(data, norms, rec_dfs, rec_gid, n: int, ragged: Optional[Ragged]) -> None:
+    """The store's layout as the kernel takes it: dense ``[P, cap, n]`` and
+    ``[P, cap]`` columns, or flat ``[R, n]`` and ``[R]`` ones with int64
+    ``start`` and int32 ``extent`` of ``[P]``."""
+    dims = 3 if ragged is None else 2
+    _lib.require(data, "refine data", torch.float32, dims)
+    _lib.require(norms, "refine norms", torch.float32, dims - 1)
+    _lib.require(rec_dfs, "refine rec_dfs", torch.int32, dims - 1)
+    _lib.require(rec_gid, "refine rec_gid", torch.int32, dims - 1)
+    if ragged is None:
+        p, cap = norms.shape
+        if data.shape != (p, cap, n) or rec_dfs.shape != (p, cap) \
+                or rec_gid.shape != (p, cap):
+            raise ValueError("store columns disagree on [P, cap, n]")
+        return
+    _lib.require(ragged.start, "refine start", torch.int64, 1)
+    _lib.require(ragged.extent, "refine extent", torch.int32, 1)
+    r = data.shape[0]
+    if data.shape != (r, n) or norms.shape != (r,) or rec_dfs.shape != (r,) \
+            or rec_gid.shape != (r,) or ragged.extent.shape != ragged.start.shape:
+        raise ValueError("store columns disagree on [R, n] and [P]")
+
+
+def _launch(entry, tensors, ragged: Ragged, k: int, scratch_bytes: int,
+            stat_words: int, *sizes):
     """One call of a design's C entry on validated, non-empty card tensors
-    (``sizes``: its integer arguments): its scratch, the outputs, and the
-    plan's two sharing counts, read back with no sync of their own."""
-    queries = tensors[4]
+    of a flat store (``sizes``: its integer arguments): its scratch, the
+    outputs, and the call's ``stat_words`` counts, read back with no sync
+    of their own."""
+    data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi = tensors
     dev = queries.device
     d2 = torch.empty((queries.shape[0], k), dtype=torch.float32, device=dev)
     gid = torch.empty((queries.shape[0], k), dtype=torch.int32, device=dev)
     scratch = torch.empty((scratch_bytes + 7) // 8, dtype=torch.int64, device=dev)
-    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    stats = torch.empty(stat_words, dtype=torch.int64, device=dev)
     _SHARING.drain()
+    ptrs = (data, norms, rec_dfs, rec_gid, ragged.start, ragged.extent, queries,
+            sel_part, sel_lo, sel_hi, scratch, stats, d2, gid)
     with torch.cuda.device(dev):
-        _lib.check(entry(*(t.data_ptr() for t in tensors), scratch.data_ptr(),
-                         stats.data_ptr(), d2.data_ptr(), gid.data_ptr(), *sizes,
-                         _lib.stream(dev)), "refine_topk")
+        _lib.check(entry(*(t.data_ptr() for t in ptrs), *sizes, _lib.stream(dev)),
+                   "refine_topk")
         _SHARING.push(stats)
     _lib.count_launch(refine_topk)
     return d2, gid
@@ -333,12 +444,15 @@ def _launch(entry, tensors, k: int, scratch_bytes: int, *sizes):
 
 def _partition_major(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
                      sel_hi, k: int, *, group: Optional[int] = None,
-                     lists: Optional[int] = None):
+                     lists: Optional[int] = None, ragged: Optional[Ragged] = None):
     """The partition-major design on the card, with at most ``group``
     queries an item (None: as many as the block's shared memory holds) and
     ``lists`` lists a query (None: :func:`plan_lists`); any value gives the
     same answer.  Also counted in ``_partition_major.launches``."""
-    (qn, n), mp, (p, cap) = queries.shape, sel_part.shape[1], norms.shape
+    data, norms, rec_dfs, rec_gid, ragged = flat_store(data, norms, rec_dfs,
+                                                       rec_gid, ragged)
+    (qn, n), mp = queries.shape, sel_part.shape[1]
+    p, cap = ragged.start.shape[0], ragged.cap
     lib = _lib.library()
     most = lib.climber_refine_group(n, k)
     if most < 1:
@@ -349,18 +463,22 @@ def _partition_major(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
         raise ValueError(f"refine kernel: {nl} lists x k={k} exceed the merge "
                          f"block's shared memory")
     out = _launch(lib.climber_refine_topk,
-                  (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi), k,
-                  lib.climber_refine_scratch_bytes(qn, mp, p, k, nl, g),
-                  qn, mp, p, cap, n, k, nl, g)
+                  (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi),
+                  ragged, k, lib.climber_refine_scratch_bytes(qn, mp, p, k, nl, g),
+                  5, qn, mp, p, cap, n, k, nl, g)
     _lib.count_launch(_partition_major)
     return out
 
 
 def _query_major(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
-                 sel_hi, k: int, *, splits: Optional[int] = None):
+                 sel_hi, k: int, *, splits: Optional[int] = None,
+                 ragged: Optional[Ragged] = None):
     """The query-major design on the card, with at most ``splits`` blocks a
     query (None: :func:`pick_splits`); any value gives the same answer."""
-    (qn, n), mp, (p, cap) = queries.shape, sel_part.shape[1], norms.shape
+    data, norms, rec_dfs, rec_gid, ragged = flat_store(data, norms, rec_dfs,
+                                                       rec_gid, ragged)
+    (qn, n), mp = queries.shape, sel_part.shape[1]
+    p, cap = ragged.start.shape[0], ragged.cap
     lib = _lib.library()
     if lib.climber_refine_partial_smem(mp, n, k) > _lib.SMEM_LIMIT:
         raise ValueError(f"refine kernel: MP={mp}, n={n}, k={k} exceed the "
@@ -370,9 +488,9 @@ def _query_major(data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo,
         raise ValueError(f"refine kernel: {s} splits x k={k} exceed the merge "
                          f"block's shared memory")
     return _launch(lib.climber_refine_topk_query_major,
-                   (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi), k,
-                   lib.climber_refine_partial_scratch_bytes(qn, p, k, s),
-                   qn, mp, p, cap, n, k, s)
+                   (data, norms, rec_dfs, rec_gid, queries, sel_part, sel_lo, sel_hi),
+                   ragged, k, lib.climber_refine_partial_scratch_bytes(qn, p, k, s),
+                   2, qn, mp, p, cap, n, k, s)
 
 
 refine_topk.launches = 0

@@ -671,8 +671,9 @@ def test_refine_design_follows_plan_entries_per_partition(monkeypatch, qn, desig
     plan = [torch.zeros((qn, mp), dtype=torch.int32) for _ in range(3)]
     RT.refine_topk(*store, torch.zeros((qn, n)), *plan, 5)
     RT.refine_topk(*store, torch.zeros((qn, n)), *plan, 5, splits=3)
-    first = {} if design == "partition_major" else {"splits": None}
-    assert calls == [(design, first), ("query_major", {"splits": 3})]
+    first = {"ragged": None} if design == "partition_major" else {"splits": None,
+                                                                   "ragged": None}
+    assert calls == [(design, first), ("query_major", {"splits": 3, "ragged": None})]
 
 
 def test_c_signatures_match_the_kernel_sources():

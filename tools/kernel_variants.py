@@ -207,8 +207,8 @@ EDITS = {
             ("  const unsigned lt_mask = (1u << lane) - 1u;\n  if (tid == 0) s_stage = 0;\n",
              "  const unsigned lt_mask = (1u << lane) - 1u;\n  if (tid == 0) s_stage = 0;\n"
              "  unsigned long long p_t = clock64(), p_acc[6] = {0, 0, 0, 0, 0, 0};\n"),
-            ("    const long long pbase = static_cast<long long>(s_part) * cap;\n",
-             "    MARK(0)\n    const long long pbase = static_cast<long long>(s_part) * cap;\n"),
+            ("    const long long pbase = start[s_part];\n",
+             "    MARK(0)\n    const long long pbase = start[s_part];\n"),
             ("      const int nt = (nev + tile - 1) / tile;\n",
              "      MARK(1)\n      const int nt = (nev + tile - 1) / tile;\n"),
             ("        cp_async_wait(stages - 1);\n        __syncthreads();\n",
@@ -447,10 +447,13 @@ def build_all(builds: dict, root: Path, only=None) -> dict:
         # may get
         lib.query_major = "climber_refine_group" not in text
         lib.balanced = "refine_plan_kernel" in text
+        # a build that takes each partition's start and extent (a flat store)
+        lib.ragged = "const long long* start, const int* extent" in text
         for fn_name, (restype, argtypes) in _lib._SIGNATURES.items():
             if hasattr(lib, fn_name):
                 fn = getattr(lib, fn_name)
-                fn.restype, fn.argtypes = restype, argtypes
+                fn.restype, fn.argtypes = (restype, argtypes) if lib.ragged \
+                    else DENSE_SIGNATURES.get(fn_name, (restype, argtypes))
         if lib.query_major:
             fn = lib.climber_refine_topk
             fn.restype, fn.argtypes = QUERY_MAJOR_REFINE
@@ -463,22 +466,41 @@ QUERY_MAJOR_REFINE = (ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                       + [ctypes.c_void_p])
 
 
+# the entries of a build that takes dense [P, cap] stores only (an older tree)
+DENSE_SIGNATURES = {
+    "climber_refine_topk": (ctypes.c_int, [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                            + [ctypes.c_void_p]),
+    "climber_refine_topk_query_major": (ctypes.c_int, [ctypes.c_void_p] * 12
+                                        + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+}
+
+
 def call_refine(lib, store, qs, sp, lo, hi, k: int, design=None, group=None):
     """``(d2, gid)`` of a build of ``refine_topk.cu`` on a partition-sorted
     plan, through that build's own C interface: by the package's rule for
     which design a plan takes, or ``design`` ("query" / "partition"; an
     older tree has the query-major design only), with at most ``group``
-    queries an item in the partition-major one (None: the most)."""
+    queries an item in the partition-major one (None: the most).  A build
+    that takes dense stores only refuses a ragged one."""
+    from repro_torch.kernels.refine_topk import PARTITION_MAJOR_MIN, flat_store, plan_lists
     dev = qs.device
     qn, n = qs.shape
-    mp, (p, cap) = sp.shape[1], store.norms.shape
+    mp = sp.shape[1]
     d2 = torch.empty((qn, k), dtype=torch.float32, device=dev)
     gid = torch.empty((qn, k), dtype=torch.int32, device=dev)
-    ptrs = (store.data.data_ptr(), store.norms.data_ptr(), store.rec_dfs.data_ptr(),
-            store.rec_gid.data_ptr(), qs.data_ptr(), sp.data_ptr(), lo.data_ptr(),
-            hi.data_ptr())
+    plan = (qs.data_ptr(), sp.data_ptr(), lo.data_ptr(), hi.data_ptr())
+    if lib.ragged:
+        rows, norms, dfs, gids, lay = flat_store(store.data, store.norms, store.rec_dfs,
+                                                 store.rec_gid, store.ragged)
+        p, cap = lay.start.shape[0], lay.cap
+        ptrs = tuple(t.data_ptr() for t in (rows, norms, dfs, gids, lay.start, lay.extent)) + plan
+    else:
+        if store.ragged is not None:
+            raise ValueError("this build takes dense [P, cap, n] stores only")
+        p, cap = store.norms.shape
+        ptrs = (store.data.data_ptr(), store.norms.data_ptr(), store.rec_dfs.data_ptr(),
+                store.rec_gid.data_ptr()) + plan
     stream = _lib.stream(dev)
-    from repro_torch.kernels.refine_topk import PARTITION_MAJOR_MIN, plan_lists
     if design is None:
         design = "query" if qn * mp < PARTITION_MAJOR_MIN * p else "partition"
     if lib.query_major or design == "query":
@@ -505,7 +527,7 @@ def call_refine(lib, store, qs, sp, lo, hi, k: int, design=None, group=None):
     lists = plan_lists(qn, mp, p, n, k, group)
     scratch = torch.empty((lib.climber_refine_scratch_bytes(qn, mp, p, k, lists, group) + 7)
                           // 8, dtype=torch.int64, device=dev)
-    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    stats = torch.empty(5, dtype=torch.int64, device=dev)
     _lib.check(lib.climber_refine_topk(*ptrs, scratch.data_ptr(), stats.data_ptr(),
                                        d2.data_ptr(), gid.data_ptr(), qn, mp, p, cap, n,
                                        k, lists, group, stream), "refine build")

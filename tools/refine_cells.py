@@ -24,12 +24,21 @@ are timed only); each edited build is also run forced to the
 partition-major design with one query an item, against the package
 kernel forced alike.
 
+Each tick also reports ``refine.item_tail`` as the package kernel's call
+observes it (None where the call takes the query-major design).
+
+The store may be dense or ragged (``partition_pad`` 0): the counts follow
+the program's addressing (``kernels.refine_topk.entry_rows``), and a
+``--parent-csrc`` build that takes dense stores only is left out on a
+ragged one.
+
 ``--crossover 64,256,...`` times the two designs (the package's, each
 forced) on the first tick's first Q queries of each cell for each Q, the
 plan at its planned width and cut to its live width: the entries a
 partition that decide which design a call takes (``Q · MP / P``, pads
 included) against the sharing the plan has (live (query, partition) pairs
-over distinct partitions), and which design is faster there.
+over distinct partitions), and which design is faster there; with
+``--parent-csrc``, the older build's query-major design beside them.
 
 Usage (needs a CUDA card and nvcc):
 ``python3 tools/refine_cells.py [--workloads a,b] [--ticks 2] [--seed 1]
@@ -57,12 +66,14 @@ from repro_torch.kernels import _lib  # noqa: E402
 # kernel-name fragments the profiler's device time is summed by
 KERNEL_NAMES = ("refine_partial_kernel", "refine_plan_kernel", "refine_part_kernel",
                 "refine_count_kernel", "refine_scan_kernel", "refine_scatter_kernel",
-                "refine_merge_kernel", "refine")
+                "refine_split_kernel", "refine_merge_kernel", "refine")
 
 
 def plan_stats(store, sp, lo, hi, k: int, block: int = 16) -> dict:
     """Sharing and work of one partition-sorted ``[Q, MP]`` plan."""
     from climbench import work
+    from repro_torch.kernels import refine_topk as RT
+    rec_dfs, rec_gid, lay = RT._flat_tags(store.rec_dfs, store.rec_gid, store.ragged)
     live = sp >= 0
     seg_new = live.clone()
     seg_new[:, 1:] &= sp[:, 1:] != sp[:, :-1]
@@ -77,12 +88,11 @@ def plan_stats(store, sp, lo, hi, k: int, block: int = 16) -> dict:
         if w == 0:
             continue
         bsp, blo, bhi = (t[b0:b0 + block, -w:] for t in (sp, lo, hi))
-        kept = work.kept_slots(store.rec_dfs, store.rec_gid, bsp, blo, bhi)
+        row, _ = RT.entry_rows(lay, bsp)
+        kept = RT.kept_slots(rec_dfs, rec_gid, bsp, blo, bhi, ragged=lay)
         pairs += int(kept.sum())
-        slots += int((bsp >= 0).sum()) * cap
-        slot = (torch.clamp(bsp, min=0).long()[:, :, None] * cap
-                + torch.arange(cap, device=kept.device))
-        uniq.append(torch.unique(slot[kept]))
+        slots += int(lay.extent[bsp[bsp >= 0].long()].sum())
+        uniq.append(torch.unique(row[kept]))
         # kept records per (query, partition) segment
         bnew = bsp >= 0
         bnew[:, 1:] &= bsp[:, 1:] != bsp[:, :-1]
@@ -111,10 +121,12 @@ def plan_stats(store, sp, lo, hi, k: int, block: int = 16) -> dict:
             "bound_bytes": w.nbytes, "bound_flops": w.flops}
 
 
-def crossover(eng, store, q_all, k: int, sizes, args) -> list:
+def crossover(eng, store, q_all, k: int, sizes, args, built=None) -> list:
     """Both designs on the first Q of ``q_all`` for each Q, the plan at its
     planned width and cut to its live width (rows per design: event ms,
-    device ms; the two answers bit-equal)."""
+    device ms; the two answers bit-equal), and each of ``built``'s builds
+    that takes the store forced to its query-major design (event ms, and
+    whether it equals the package's query-major answer bit for bit)."""
     from repro_torch.kernels import refine_topk as RT
     rows = []
     for qn in sizes:
@@ -128,6 +140,7 @@ def crossover(eng, store, q_all, k: int, sizes, args) -> list:
                                     ("live", (sp[:, -w:].contiguous(), lo[:, -w:].contiguous(),
                                               hi[:, -w:].contiguous()))):
             a = (store.data, store.norms, store.rec_dfs, store.rec_gid, q, s_, l_, h_)
+            rg = {"ragged": store.ragged}
             row = {"Q": qn, "width": width, "mp": s_.shape[1], "P": store.num_partitions,
                    "entries_per_partition": qn * s_.shape[1] / store.num_partitions,
                    "rule": ("partition" if qn * s_.shape[1] >= RT.PARTITION_MAJOR_MIN
@@ -136,15 +149,24 @@ def crossover(eng, store, q_all, k: int, sizes, args) -> list:
                    "queries_per_partition": pairs / max(1, parts)}
             outs = {}
             for design, fn in (("query", RT._query_major), ("partition", RT._partition_major)):
-                outs[design] = fn(*a, k)
+                outs[design] = fn(*a, k, **rg)
                 ms = []
                 dev = []
                 for _ in range(args.rounds):
-                    m, d = KV.timed(lambda: fn(*a, k), KERNEL_NAMES, iters=args.iters)
+                    m, d = KV.timed(lambda: fn(*a, k, **rg), KERNEL_NAMES, iters=args.iters)
                     ms.append(m)
                     dev.append(d.get("refine", 0.0))
                 row[f"{design}_ms"] = min(ms)
                 row[f"{design}_device_ms"] = min(dev)
+            for bname, (lib, _) in (built or {}).items():
+                if bname in KV.PROBES or (store.ragged is not None and not lib.ragged):
+                    continue
+                fn = (lambda lib=lib: KV.call_refine(lib, store, q, s_, l_, h_, k, "query"))
+                got = fn()
+                row[f"query_{bname}_equal"] = bool(torch.equal(got[0], outs["query"][0])
+                                                   and torch.equal(got[1], outs["query"][1]))
+                row[f"query_{bname}_ms"] = min(KV.timed(fn, KERNEL_NAMES, iters=args.iters)[0]
+                                               for _ in range(args.rounds))
             row["equal"] = bool(torch.equal(outs["query"][0], outs["partition"][0])
                                 and torch.equal(outs["query"][1], outs["partition"][1]))
             row["faster"] = ("partition" if row["partition_ms"] < row["query_ms"]
@@ -173,7 +195,7 @@ def main(argv=None) -> int:
     from repro_torch.core.query import register_recall_target
     from repro_torch.kernels import ops
     from repro_torch.kernels import refine_topk as RT
-    from repro_torch.kernels.refine_topk import SHARING, flush_sharing
+    from repro_torch.kernels.refine_topk import ITEM_TAIL, SHARING, flush_sharing
     from repro_torch.obs.registry import REGISTRY
     from repro_torch.serve.knn_engine import ClimberEngine
 
@@ -220,16 +242,19 @@ def main(argv=None) -> int:
                           for t in (sp, lo, hi))
             row = {"plan": plan_stats(store, sp, lo, hi, k)}
             run_kernel = lambda: ops.fused_refine_topk(store.data, store.norms, store.rec_dfs,
-                                                       store.rec_gid, q, sp, lo, hi, k)
-            h = REGISTRY.histogram(SHARING)
+                                                       store.rec_gid, q, sp, lo, hi, k,
+                                                       ragged=store.ragged)
+            h, tail = REGISTRY.histogram(SHARING), REGISTRY.histogram(ITEM_TAIL)
             flush_sharing()
-            n0, s0 = h.count, h.sum
+            n0, s0, t0, u0 = h.count, h.sum, tail.count, tail.sum
             want = run_kernel()
             flush_sharing()
             row["queries_per_partition_counter"] = (h.sum - s0) / max(1, h.count - n0)
+            row["item_tail"] = (tail.sum - u0) / (tail.count - t0) if tail.count > t0 else None
             runs = {"kernel": run_kernel}
             for bname, (lib, _) in built.items():
-                runs[bname] = (lambda lib=lib: KV.call_refine(lib, store, q, sp, lo, hi, k))
+                if store.ragged is None or lib.ragged:
+                    runs[bname] = (lambda lib=lib: KV.call_refine(lib, store, q, sp, lo, hi, k))
             row["equal_to_kernel"] = {}
             args_ = (store.data, store.norms, store.rec_dfs, store.rec_gid, q, sp, lo, hi)
             one = None
@@ -241,7 +266,8 @@ def main(argv=None) -> int:
                     print(f"{name} tick {tick}: {bname} equal to the kernel: "
                           f"{row['equal_to_kernel'][bname]}", flush=True)
                     if bname != "parent":
-                        one = one or RT._partition_major(*args_, k, group=1)
+                        one = one or RT._partition_major(*args_, k, group=1,
+                                                         ragged=store.ragged)
                         got = KV.call_refine(built[bname][0], store, q, sp, lo, hi, k,
                                              "partition", 1)
                         torch.cuda.synchronize()
@@ -283,7 +309,7 @@ def main(argv=None) -> int:
         if args.crossover:
             q = data[order[3 * b:4 * b]].contiguous()
             report.setdefault("crossover", {})[name] = crossover(
-                eng, store, q, k, [int(x) for x in args.crossover.split(",")], args)
+                eng, store, q, k, [int(x) for x in args.crossover.split(",")], args, built)
         del eng
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
